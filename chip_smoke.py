@@ -1,0 +1,504 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--subjects N]
+
+Phases, each printing one JSON line ({"phase": ...}):
+  device   the card's name and power limit (nvidia-smi);
+  build    nvcc of every kernel source in csrc/, in parallel;
+  kernels  each kernel's wrapper at its main-path shape on seeded inputs,
+           held against its plain PyTorch version on the card (integer
+           outputs: equal, max_abs_err 0), with CUDA-event times of the
+           kernel, the plain version, torch.sort as B1's yardstick, and
+           the least time the card could take (bound_ms);
+  golden   `db` + `aln --batch 128` through the port's CLI on CUDA over
+           tests/golden/config1_*, byte-compared with the golden table;
+  scale    the config-2-true deployment: 570,000 synthetic proteins of
+           250-450 aa (numpy default_rng(7)), k = 5, hits_per_seed 128,
+           100 bp reads in 8192-read batches through
+           SearchEngine.search_refine_async_dna with a background fetch
+           (1 warm + 5 timed), then the same batches through the
+           pipeline writing m8; a 256-read batch cross-checked against the
+           same engine on device="cpu".
+The launch counters are set to 0 just before each main-path run (the
+golden aln and the scale timed run) and read just after; every kernel must
+have launched in its run. Then a line with the card's name and power
+limit, a line {"kernels": [...]}, and last {"ok": true, "device": ...}.
+Any mismatch or exception exits non-zero; so does a host without CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+OPS_PER_S = 67e12           # H100 SXM non-tensor 32-bit rate (see bound())
+N_SUBJECTS = 570_000
+TIMED_BATCHES = 5            # 8192-read batches after 1 warm batch
+
+
+def emit(**kw):
+    print(json.dumps(kw), flush=True)
+
+
+def smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
+    """Median CUDA-event time of one call, L2 flushed before each (the
+    inputs of the big calls exceed the 50 MB L2 anyway)."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return float(np.median(ts))
+
+
+def bound(nbytes: float, nops: float):
+    """(bound_ms, bound_by): the larger of bytes over 3.35 TB/s and int32
+    operations over 67 T/s (the guide's non-tensor 32-bit entry; it lists
+    no int32 rate, and this one is no lower than Hopper's int32 rate, so
+    the bound stays a lower bound)."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def presorted_keys(gen, q, m, run, hi, big_frac, dev):
+    """(q, m) int32 vote keys, a big_frac share invalid (BIG), each run of
+    `run` sorted, odd runs descending — the rows propose_shard builds."""
+    from ghostm_tpu_torch.kernels.sort import BIG
+
+    k = torch.randint(0, hi, (q, m), generator=gen, device=dev,
+                      dtype=torch.int32)
+    inval = torch.rand((q, m), generator=gen, device=dev) < big_frac
+    k = torch.where(inval, torch.full_like(k, BIG), k)
+    k = torch.sort(k.view(q, m // run, run), dim=2).values
+    k[:, 1::2] = torch.flip(k[:, 1::2], [2])
+    return k.reshape(q, m).contiguous()
+
+
+def per_kernel(launches: dict) -> dict:
+    """Wrapper launch counts -> counts per CUDA kernel (B2's two entries
+    launch one kernel)."""
+    return {"B1": launches["sort_rows"],
+            "B2": launches["sort_vote_rank_rows"]
+            + launches["merge_vote_rank_rows"],
+            "B3": launches["sw_fused"], "B4": launches["lex_rank_rows"]}
+
+
+def max_err(a, b) -> int:
+    if isinstance(a, torch.Tensor):
+        a, b = (a,), (b,)
+    return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+               if x.numel() else 0 for x, y in zip(a, b))
+
+
+def kernel_phase(dev):
+    """Each kernel at its main-path shape vs its plain version."""
+    from ghostm_tpu_torch.kernels import sort as S
+    from ghostm_tpu_torch.kernels import sw_fused as F
+    from ghostm_tpu_torch.ops.scoring import padded_matrix
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    ncand = 8
+    entries = []
+
+    def run(name, source, replaces, kern, plain, library, nbytes, nops,
+            ops_note, reps=20):
+        out_k, out_p = kern(), plain()
+        torch.cuda.synchronize()
+        err = max_err(out_k, out_p)
+        equal = err == 0
+        ms = time_ms(kern, reps, flush)
+        plain_ms = time_ms(plain, 3, flush)
+        lib_ms = time_ms(library, reps, flush) if library else None
+        b_ms, b_by = bound(nbytes, nops)
+        e = dict(name=name, route="cuda", source=source, replaces=replaces,
+                 equal=equal, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                 bytes=nbytes, ops=nops, ops_counted=ops_note)
+        emit(phase="kernels", **e)
+        entries.append(e)
+        if not equal:
+            raise SystemExit(f"{name}: kernel differs from its plain version")
+
+    def sort_ops(q, L, first, extra_per_elem=0):
+        passes = sum(range(first, L.bit_length()))
+        return q * (passes * (L // 2) * 2 + extra_per_elem * L)
+
+    # B1: config-2 split sort, leading half (6144, 4096), runs of 128
+    x = presorted_keys(gen, 6144, 4096, 128, 1 << 26, 0.4, dev)
+    run("B1 sort_rows", "ghostm_tpu_torch/csrc/sort_rows.cu",
+        "ghostm_tpu/kernels/sort.py:69",
+        lambda: S.sort_rows(x, presorted_run=128),
+        lambda: S.sort_rows_plain(x, presorted_run=128),
+        lambda: torch.sort(x, dim=1),
+        2 * x.numel() * 4, sort_ops(6144, 4096, 8),
+        "2 per compare-exchange, stages 8..12")
+    # B2 monolithic: golden config-1 shape (768 frames, 38 runs of 16)
+    k1 = presorted_keys(gen, 768, 608, 16, 1 << 14, 0.6, dev)
+    run("B2 sort_vote_rank_rows", "ghostm_tpu_torch/csrc/sort_vote.cu",
+        "ghostm_tpu/kernels/sort.py:74",
+        lambda: S.sort_vote_rank_rows(k1, ncand, 1, presorted_run=16),
+        lambda: S.sort_vote_rank_rows_plain(k1, ncand, 1, presorted_run=16),
+        None, k1.numel() * 4 + 2 * 768 * ncand * 4,
+        sort_ops(768, 1024, 5, 1 + 2 * ncand),
+        "2 per compare-exchange (stages 5..10) + (1 + 2 ncand) per key")
+    # B2 merge: config-2 (6144, 4096) + (6144, 512) sorted halves
+    keys = presorted_keys(gen, 6144, 4608, 128, 1 << 22, 0.4, dev)
+    a = torch.sort(keys[:, :4096], dim=1).values.contiguous()
+    b = torch.sort(keys[:, 4096:], dim=1).values.contiguous()
+    run("B2 merge_vote_rank_rows", "ghostm_tpu_torch/csrc/sort_vote.cu",
+        "ghostm_tpu/kernels/sort.py:74",
+        lambda: S.merge_vote_rank_rows(a, b, ncand, 1),
+        lambda: S.merge_vote_rank_rows_plain(a, b, ncand, 1),
+        None, (a.numel() + b.numel()) * 4 + 2 * 6144 * ncand * 4,
+        sort_ops(6144, 8192, 13, 1 + 2 * ncand),
+        "2 per compare-exchange (stage 13) + (1 + 2 ncand) per key")
+    # B3: config-2 align, 49152 frames x 8 candidates, Lq 40, band 32
+    N, Lq, B = 393_216, 40, 32
+    mat = torch.from_numpy(padded_matrix("BLOSUM62").astype(np.int32)).to(dev)
+    q = torch.randint(0, 26, (N, Lq), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(0, 26, (N, Lq + B), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w[::2, 8:8 + Lq] = q[::2]     # half the pairs related: real alignments
+    lo = torch.randint(0, 8, (N,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    hi = torch.randint(Lq // 2, Lq + B, (N,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    run("B3 sw_fused", "ghostm_tpu_torch/csrc/sw_fused.cu",
+        "ghostm_tpu/kernels/sw_fused.py:129",
+        lambda: F.sw_fused(q, w, mat, lo, hi, 11, 1, B, 23),
+        lambda: F.sw_fused_plain(q, w, mat, lo, hi, 11, 1, B, 23),
+        None, N * (Lq + Lq + B + 8 + 12), 12 * N * Lq * B,
+        "12 int32 ops per DP cell")
+    # B4: config-2 rank, 9 operands x (8192 reads, 48 hits), 5 keys, top 10
+    R, M, nops = 8192, 48, 9
+    ops = torch.randint(0, 6, (nops, R, M), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ops[5:] = torch.randint(-1000, 1000, (4, R, M), generator=gen,
+                            device=dev, dtype=torch.int32)
+    run("B4 lex_rank_rows", "ghostm_tpu_torch/csrc/lex_rank.cu",
+        "ghostm_tpu/kernels/sort.py:127",
+        lambda: S.lex_rank_rows(ops, 5, 10),
+        lambda: S.lex_rank_rows_plain(ops, 5, 10),
+        None, ops.numel() * 4 + nops * R * 10 * 4, R * 21 * 32 * 26,
+        "26 per compare-exchange (6 compares + 20 moves), 21 passes at L=64")
+    del x, k1, keys, a, b, q, w, lo, hi, ops, flush
+    torch.cuda.empty_cache()
+    return entries
+
+
+def golden_phase():
+    """db + aln --batch 128 through the port's CLI on CUDA."""
+    from ghostm_tpu_torch.cli import main as cli
+    from ghostm_tpu_torch.kernels import _build
+
+    gold = os.path.join(ROOT, "tests", "golden")
+    with tempfile.TemporaryDirectory() as d:
+        prefix, out = os.path.join(d, "idx"), os.path.join(d, "hits.tsv")
+        if cli(["db", "-i", os.path.join(gold, "config1_db.fa"),
+                "-o", prefix]) != 0:
+            raise SystemExit("golden: db failed")
+        _build.reset_launches()
+        t0 = time.time()
+        if cli(["aln", "-d", prefix, "-i",
+                os.path.join(gold, "config1_reads.fa"), "-o", out,
+                "--batch", "128", "--device", "cuda"]) != 0:
+            raise SystemExit("golden: aln failed")
+        wall = time.time() - t0
+        launches = dict(_build.LAUNCHES)
+        with open(out) as f, open(os.path.join(gold,
+                                               "config1_hits.tsv")) as g:
+            got, want = f.read(), g.read()
+    match = got == want
+    emit(phase="golden", match=match, rows=len(got.splitlines()) - 1,
+         aln_s=wall, launches=launches, kernel_launches=per_kernel(launches))
+    if not match:
+        raise SystemExit("golden: the CUDA hit table differs from "
+                         "tests/golden/config1_hits.tsv")
+    for k in ("sort_vote_rank_rows", "sw_fused", "lex_rank_rows"):
+        if launches[k] == 0:
+            raise SystemExit(f"golden: kernel {k} was never launched")
+    return launches
+
+
+def build_config2_index(n_subjects: int, cfg):
+    """The config-2-true store + k=5 seed index (positions truncated to the
+    first hits_per_seed per bucket), as one shard."""
+    from ghostm_tpu_torch.index import diskio, seeds
+    from ghostm_tpu_torch.index.store import SubjectStore
+    from ghostm_tpu_torch.utils.simulate import fast_proteins, store_arrays
+
+    rng = np.random.default_rng(7)
+    codes, lens = fast_proteins(rng, n_subjects)
+    buf, starts = store_arrays(codes, lens, cfg.sentinel_pad)
+    st = SubjectStore(buffer=buf, starts=starts, lengths=lens.astype(np.int32),
+                      subject_ids=np.arange(n_subjects, dtype=np.int32),
+                      names=[f"s{i}" for i in range(n_subjects)])
+    sidx = seeds.build_seed_index(buf, cfg.seed_len)
+    bs = np.asarray(sidx.bucket_starts, np.int64)
+    counts = np.diff(bs)
+    keep = (np.arange(len(sidx.positions), dtype=np.int64)
+            - np.repeat(bs[:-1], counts)) < cfg.hits_per_seed
+    nbs = np.zeros(len(bs), np.int64)
+    np.cumsum(np.minimum(counts, cfg.hits_per_seed), out=nbs[1:])
+    sidx = seeds.SeedIndex(cfg.seed_len,
+                           sidx.positions[keep].astype(np.int32),
+                           nbs.astype(np.int32))
+    return diskio.stack_shards([diskio.IndexShard(st, sidx)], cfg.seed_len)
+
+
+def make_batches(index, n_batches: int, R: int):
+    from ghostm_tpu_torch.ops.encode import encode_dna
+    from ghostm_tpu_torch.utils.simulate import (
+        decode_protein, reads_from_proteins,
+    )
+
+    st = index.shards[0].store
+    rng = np.random.default_rng(1)
+    pick = rng.integers(0, st.num_subjects, 256)
+    prots = [decode_protein(st.subject_seq(int(p))) for p in pick]
+    out = []
+    for bi in range(n_batches):
+        names, reads = reads_from_proteins(rng, prots, R, read_len=100)
+        dna = np.full((R, 100), 4, np.int8)
+        lens = np.zeros(R, np.int32)
+        for i, rd in enumerate(reads):
+            c = encode_dna(rd)
+            dna[i, :len(c)] = c
+            lens[i] = len(c)
+        out.append(([f"b{bi}_{n}" for n in names], dna, lens))
+    return out
+
+
+def stage_breakdown(eng, dna: np.ndarray, lens: np.ndarray) -> dict:
+    """One batch through the engine's stages with a synchronise after each
+    (host ms per stage: serialised, so the sum exceeds a pipelined batch),
+    then one batch under torch.profiler: device time summed over kernels,
+    the device's busy share of that batch's wall, and the top kernels."""
+    from ghostm_tpu_torch.engine import NFRAMES, merge_rank
+    from ghostm_tpu_torch.ops.translate import six_frame_translate_torch
+
+    cfg = eng.cfg
+    R = dna.shape[0]
+    ms = {}
+    torch.cuda.synchronize()
+    t = time.time()
+
+    def mark(name):
+        nonlocal t
+        torch.cuda.synchronize()
+        now = time.time()
+        ms[name] = (now - t) * 1e3
+        t = now
+
+    d = torch.from_numpy(dna).to(eng.device)
+    ln = torch.from_numpy(lens).to(eng.device)
+    mark("h2d")
+    q3 = six_frame_translate_torch(d, ln, cfg.query_frame_len)
+    mark("translate")
+    qflat = q3.reshape(R * NFRAMES, cfg.query_frame_len)
+    sel_g, sel_b = eng.propose(qflat)
+    mark("propose")
+    aligned = eng.align(qflat, sel_g, sel_b)
+    mark("align")
+    packed = merge_rank(aligned, sel_g, R, cfg.max_hits)
+    mark("rank")
+    stats = eng.refine_packed(q3, packed)
+    mark("refine")
+    staged = eng.fetch(eng._pack_transport(torch.cat([packed, stats])))
+    mark("pack_d2h")
+    whole = eng.fetch(eng.search_refine_async_dna(dna, lens))
+    if not np.array_equal(staged, whole):
+        raise SystemExit("scale: the staged batch differs from step_dna")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        eng.fetch(eng.search_refine_async_dna(dna, lens))
+        wall = time.time() - t0
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue   # CPU ops also carry their kernels' device time
+        dt = getattr(ev, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "self_cuda_time_total", 0)
+        if dt > 0:
+            rows.append((dt / 1e3, ev.count, ev.key[:60]))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    return dict(stage_ms=ms, profiled_wall_ms=wall * 1e3,
+                device_busy_ms=busy,
+                device_busy_share=busy / (wall * 1e3),
+                device_launches=sum(r[1] for r in rows),
+                top_kernels=[dict(ms=r[0], n=r[1], name=r[2])
+                             for r in rows[:12]])
+
+
+def scale_phase(n_subjects: int, n_timed: int):
+    from ghostm_tpu_torch.config import Config
+    from ghostm_tpu_torch.engine import SearchEngine
+    from ghostm_tpu_torch.kernels import _build
+    from ghostm_tpu_torch.pipeline import run_search
+
+    R = 8192
+    cfg = Config(query_batch=R, seed_len=5, hits_per_seed=128)
+    t0 = time.time()
+    index = build_config2_index(n_subjects, cfg)
+    t_index = time.time() - t0
+    t0 = time.time()
+    eng = SearchEngine(cfg, index, device="cuda")
+    torch.cuda.synchronize()
+    t_engine = time.time() - t0
+    batches = make_batches(index, 1 + n_timed, R)
+    emit(phase="scale_setup", subjects=n_subjects,
+         residues=int(index.total_residues), index_s=t_index,
+         engine_init_s=t_engine, table_bytes=int(eng.key_table.nbytes),
+         table_width=eng.table_width, expand=int(index.expand_width))
+
+    eng.fetch(eng.search_refine_async_dna(*batches[0][1:]))   # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    # the pipeline's overlap: batch i+1 is launched before batch i is
+    # fetched on a background thread
+    per_batch = []
+    t_start = time.time()
+    with ThreadPoolExecutor(1) as pool:
+        fut, pending = None, None
+        for _, dna, lens in batches[1:]:
+            tb = time.time()
+            pay = eng.search_refine_async_dna(dna, lens)
+            if pending is not None:
+                if fut is not None:
+                    fut.result()
+                fut = pool.submit(eng.fetch, pending)
+            pending = pay
+            per_batch.append((time.time() - tb) * 1e3)
+        if fut is not None:
+            fut.result()
+        last = eng.fetch(pending)
+    wall = time.time() - t_start
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    emit(phase="scale", reads=R * n_timed, wall_s=wall,
+         reads_per_s=R * n_timed / wall, batch_ms=per_batch,
+         max_memory_allocated=peak, launches=launches,
+         kernel_launches=per_kernel(launches),
+         hits=int(((last[1] >> 15) > 0).sum()))
+    for k in ("sort_rows", "merge_vote_rank_rows", "sw_fused",
+              "lex_rank_rows"):
+        if launches[k] == 0:
+            raise SystemExit(f"scale: kernel {k} was never launched")
+    if not (last[1] >> 15).max() > 0:
+        raise SystemExit("scale: no hits in the last batch")
+    emit(phase="scale_stages", **stage_breakdown(eng, *batches[1][1:]))
+
+    # end to end through the pipeline (fetch, unpack, m8 write)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.time()
+        rows = run_search(eng, batches[1:], os.path.join(d, "hits.tsv"))
+        wall_p = time.time() - t0
+    emit(phase="scale_pipeline", reads=R * n_timed, wall_s=wall_p,
+         reads_per_s=R * n_timed / wall_p, rows=rows)
+
+    # cross-check: 256 reads on the card vs the same engine on the CPU
+    names, dna, lens = batches[1]
+    gpu = eng.fetch(eng.search_refine_async_dna(dna[:256], lens[:256]))
+    cpu_eng = SearchEngine(cfg.replace(query_batch=256), index, device="cpu",
+                           key_table=eng.key_table)
+    cpu = cpu_eng.fetch(cpu_eng.search_refine_async_dna(dna[:256],
+                                                        lens[:256]))
+    same = gpu.shape == cpu.shape and bool((gpu == cpu).all())
+    emit(phase="scale_crosscheck", reads=256, equal=same,
+         hits=int(((cpu[1] >> 15) > 0).sum()))
+    if not same:
+        raise SystemExit("scale: CUDA and CPU engines disagree")
+    return launches, per_batch, wall, peak
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--subjects", type=int, default=N_SUBJECTS,
+                    help="config-2 subject count (cut only for time)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from ghostm_tpu_torch.kernels import _build
+
+    t_all = time.time()
+    card = smi()
+    dev = torch.device("cuda", 0)
+    emit(phase="device", name=torch.cuda.get_device_name(0), smi=card,
+         torch=torch.__version__, cuda=torch.version.cuda)
+    t0 = time.time()
+    logs = _build.build_all()
+    ptxas = {n: [ln.strip() for ln in log.splitlines() if "Used" in ln]
+             for n, log in logs.items()}
+    emit(phase="build", seconds=time.time() - t0, ptxas=ptxas)
+    entries = kernel_phase(dev)
+    golden = golden_phase()
+    if args.subjects < N_SUBJECTS:
+        emit(phase="reduced", subjects=args.subjects, of=N_SUBJECTS,
+             why="command-line cut of the subject count")
+    scale, per_batch, wall, peak = scale_phase(args.subjects, TIMED_BATCHES)
+    path_of = {"B1 sort_rows": ("scale", "sort_rows"),
+               "B2 sort_vote_rank_rows": ("golden", "sort_vote_rank_rows"),
+               "B2 merge_vote_rank_rows": ("scale", "merge_vote_rank_rows"),
+               "B3 sw_fused": ("scale", "sw_fused"),
+               "B4 lex_rank_rows": ("scale", "lex_rank_rows")}
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    out = []
+    for e in entries:
+        path, counter = path_of[e["name"]]
+        e["launches"] = (scale if path == "scale" else golden)[counter]
+        e["launches_path"] = path
+        out.append({k: e[k] for k in keys})
+    emit(phase="done", seconds=time.time() - t_all)
+    print(card)
+    print(json.dumps({"kernels": out}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,37 @@
+// Shared helpers of the row-sort kernels (sort_rows.cu, sort_vote.cu,
+// lex_rank.cu): the padding value and one block-wide bitonic network over a
+// row held in shared memory.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define GHOSTM_PAD 0x7FFFFFFF  // row padding: sorts after every key
+#define GHOSTM_BIG (1 << 30)   // first invalid vote key
+
+// Bitonic stages k = first .. log2(L) over s[0, L), L a power of two. Stage k
+// merges runs of 2^k; a run is ascending iff bit k of its index is 0, so the
+// last stage sorts the whole row ascending. Starting at stage first > 1
+// requires each aligned 2^(first-1) block to be sorted already (ascending for
+// even block index, descending for odd) — the JAX package's presorted-run
+// skip. Every thread of the block must call this; it ends synchronised.
+__device__ __forceinline__ void bitonic_block(int32_t* s, int L, int first) {
+  const int nstage = 31 - __clz(L);
+  const int half = L >> 1;
+  for (int k = first; k <= nstage; ++k) {
+    for (int j = k - 1; j >= 0; --j) {
+      const int d = 1 << j;
+      for (int t = threadIdx.x; t < half; t += blockDim.x) {
+        // t-th pair: i has bit j clear, its partner is i + d
+        const int i = ((t >> j) << (j + 1)) | (t & (d - 1));
+        const int32_t a = s[i], b = s[i + d];
+        const bool desc = (i >> k) & 1;
+        if ((a > b) != desc) {
+          s[i] = b;
+          s[i + d] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}

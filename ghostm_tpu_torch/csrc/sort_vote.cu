@@ -1,0 +1,109 @@
+// Kernel B2: per row, sort + run-length vote + top-ncand.
+//
+// Replaces ghostm_tpu/kernels/sort.py::_sort_vote_kernel, both entries:
+//   sort_vote_rank_rows  (b == nullptr) full sort of a (Q, M) key row
+//                        starting at stage `first` (presorted runs);
+//   merge_vote_rank_rows (b != nullptr) the row [a | PAD | flip(b)] of two
+//                        sorted halves, read straight from a and b, and only
+//                        the final bitonic merge stage.
+// Then the run length of each distinct valid key (< 2^30) is its vote,
+// zeroed below min_votes, and the top ncand by (votes desc, first position
+// asc) are written as (keys, votes), key 2^30 where votes == 0.
+//
+// Bound on the H100: device-memory bytes — the key rows are read once
+// (128 MB at config-2's merge entry), the outputs are 64 bytes a row.
+// Design: one thread block per row, the row in shared memory (32 KB at
+// L = 8192). The vote needs no scan: a run's length is the distance from
+// its first position to upper_bound(key) over the sorted row, one binary
+// search per run start. Each thread keeps the packed
+// (votes << log2(L)+1 | L-1-i) words of its elements in registers; ncand
+// block-wide max reductions pick the candidates (the packing needs
+// 2 * bit_length(L) <= 31, checked by the wrapper).
+#include "bitonic.cuh"
+
+#define MAX_EPT 8  // keys per thread: L <= 8192 with 1024 threads
+
+__global__ void sort_vote_kernel(const int32_t* __restrict__ a,
+                                 const int32_t* __restrict__ b, int M, int Mb,
+                                 int L, int first, int ncand, int min_votes,
+                                 int32_t* __restrict__ keys,
+                                 int32_t* __restrict__ votes) {
+  extern __shared__ int32_t s[];
+  __shared__ int32_t red[32];
+  const size_t r = blockIdx.x;
+  if (b == nullptr) {
+    const int32_t* row = a + r * M;
+    for (int i = threadIdx.x; i < L; i += blockDim.x)
+      s[i] = i < M ? row[i] : GHOSTM_PAD;
+  } else {
+    // merge entry: M is La = L / 2; positions [L - Mb, L) hold flip(b)
+    const int32_t* ra = a + r * M;
+    const int32_t* rb = b + r * Mb;
+    for (int i = threadIdx.x; i < L; i += blockDim.x)
+      s[i] = i < M ? ra[i] : (i < L - Mb ? GHOSTM_PAD : rb[L - 1 - i]);
+  }
+  __syncthreads();
+  bitonic_block(s, L, first);
+
+  const int shift = 32 - __clz(L);  // bit_length(L)
+  const int ept = L / blockDim.x;
+  int32_t pk[MAX_EPT];
+#pragma unroll
+  for (int e = 0; e < MAX_EPT; ++e) {
+    pk[e] = 0;
+    if (e < ept) {
+      const int i = e * blockDim.x + threadIdx.x;
+      const int32_t v = s[i];
+      int nv = 0;
+      if (v < GHOSTM_BIG && (i == 0 || s[i - 1] != v)) {
+        int lo = i + 1, hi = L;  // first index in [i+1, L) with s > v
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (s[mid] > v) hi = mid; else lo = mid + 1;
+        }
+        nv = lo - i;
+        if (nv < min_votes) nv = 0;
+      }
+      pk[e] = (nv << shift) | (L - 1 - i);
+    }
+  }
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  const int32_t mask = (1 << shift) - 1;
+  for (int c = 0; c < ncand; ++c) {
+    int32_t m = 0;
+#pragma unroll
+    for (int e = 0; e < MAX_EPT; ++e) m = max(m, pk[e]);
+    for (int off = 16; off > 0; off >>= 1)
+      m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (lane == 0) red[warp] = m;
+    __syncthreads();
+    m = 0;
+    for (int w = 0; w < nwarps; ++w) m = max(m, red[w]);
+    __syncthreads();  // red is rewritten next round
+#pragma unroll
+    for (int e = 0; e < MAX_EPT; ++e)
+      if (pk[e] == m) pk[e] = 0;
+    if (threadIdx.x == 0) {
+      const int32_t tv = m >> shift;
+      const int idx = (L - 1) - (m & mask);
+      keys[r * ncand + c] = tv > 0 ? s[idx] : GHOSTM_BIG;
+      votes[r * ncand + c] = tv;
+    }
+  }
+}
+
+// Monolithic entry: a (Q, M), b = nullptr, Mb = 0, first = log2(run) + 1.
+// Merge entry: a (Q, La) with M = La, b (Q, Mb), L = 2 La, first = log2(L).
+// keys, votes: (Q, ncand) int32. L = pow2 >= 128, L <= 8192.
+extern "C" int ghostm_sort_vote_rows(const int32_t* a, const int32_t* b, int Q,
+                                     int M, int Mb, int L, int first,
+                                     int ncand, int min_votes, int32_t* keys,
+                                     int32_t* votes, cudaStream_t stream) {
+  const int threads = L / 2 < 1024 ? L / 2 : 1024;
+  if (L / threads > MAX_EPT) return (int)cudaErrorInvalidValue;
+  sort_vote_kernel<<<Q, threads, L * sizeof(int32_t), stream>>>(
+      a, b, M, Mb, L, first, ncand, min_votes, keys, votes);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,95 @@
+"""Diagonal voting + candidate proposal (port of the JAX package's
+kernels/candidates.py, SURVEY.md §2 "Diagonal voting").
+
+Every hit is keyed by (subject row, SUBJECT-LOCAL diagonal bin) packed into
+one int32 (row * nbins + bin); votes are counted scatter-free by sorting
+each query frame's keys and run-length counting; each frame keeps its top
+ncand cells by (votes desc, key asc). The branch structure is the JAX
+package's (candidates.py:177-213), so the same shapes reach the same
+kernels: a split sort (B1 twice, then B2's merge entry) when the presorted
+run count is not a power of two and the leading power-of-two part is
+>= 1024 keys, else B2's monolithic entry.
+
+Not ported yet (raise NotImplementedError): `smooth`, `chain_gamma > 0`
+and the multi-shard select.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ghostm_tpu_torch.kernels import sort
+
+BIG = 1 << 30
+
+
+def vote_and_rank(
+    keys: torch.Tensor,        # (Q, M) int32 packed hit keys, invalid = BIG
+    subject_ids: torch.Tensor,  # (S,) int32 global ids (sorted, pad BIG)
+    ncand: int,
+    min_votes: int,
+    smooth: bool = False,
+    nbins: int = 1 << 20,
+    presorted_run: int = 0,
+    chain_gamma: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """This shard's top-ncand proposals per query frame: (gsid, lbin,
+    votes), each (Q, ncand) int32; gsid/lbin are BIG where votes == 0."""
+    if smooth:
+        raise NotImplementedError("smooth_bins voting is not ported yet")
+    if chain_gamma:
+        raise NotImplementedError("chain_gamma > 0 (collinear chaining) is "
+                                  "not ported yet")
+    Q, M = keys.shape
+    S = subject_ids.shape[0]
+    if S * nbins >= (1 << 31):
+        raise ValueError(
+            f"packed vote keys overflow int32: {S} subjects x {nbins} bins; "
+            "use more shards or a wider band"
+        )
+    mv = max(min_votes, 1)
+    L = max(1 << max(M - 1, 1).bit_length(), 128)
+    if 2 * L.bit_length() <= 31 and ncand <= sort._LANES:
+        run = presorted_run
+        nruns = M // run if run > 1 and M % run == 0 else 0
+        m1 = run << (nruns.bit_length() - 1) if nruns else 0
+        if nruns and (nruns & (nruns - 1)) and m1 >= 1024:
+            # SPLIT SORT: sort the leading 2^a runs and the remainder
+            # separately, then one final bitonic merge inside the vote
+            # kernel — the same unique integer sort in fewer passes than a
+            # row padded to the next power of two
+            a = sort.sort_rows(keys[:, :m1].contiguous(), presorted_run=run)
+            b = sort.sort_rows(keys[:, m1:].contiguous(), presorted_run=run)
+            top_keys, votes = sort.merge_vote_rank_rows(a, b, ncand, mv)
+        else:
+            top_keys, votes = sort.sort_vote_rank_rows(
+                keys, ncand, mv, presorted_run=presorted_run
+            )
+    else:
+        # rows too long for the packed in-kernel top-k: B1 sort, then the
+        # plain vote (the two-reduction top-k inside vote_top)
+        top_keys, votes = sort.vote_top(
+            sort.sort_rows(keys, presorted_run=presorted_run), ncand, mv
+        )
+    top_row = (top_keys // nbins).clamp(0, S - 1).to(torch.int64)
+    pos = votes > 0
+    big = torch.full_like(votes, BIG)
+    gsid = torch.where(pos, subject_ids[top_row], big)
+    lbin = torch.where(pos, top_keys % nbins, big)
+    return gsid, lbin, votes
+
+
+def select_global(gsid: torch.Tensor, lbin: torch.Tensor, votes: torch.Tensor,
+                  ncand: int):
+    """Global top-ncand over all shards' proposals. With one shard,
+    vote_and_rank already emits the global order (votes desc, gsid asc,
+    bin asc) with gsid/lbin BIG-masked at votes == 0, so the merge is the
+    identity."""
+    if gsid.shape[1] != ncand:
+        raise NotImplementedError("multi-shard select_global is not ported "
+                                  "yet")
+    big = torch.full_like(gsid, BIG)
+    pos = votes > 0
+    return torch.where(pos, gsid, big), torch.where(pos, lbin, big), votes

@@ -1,0 +1,302 @@
+"""Row sorts of the propose and rank phases: kernels B1, B2 and B4.
+
+Each wrapper takes int32 tensors. A CPU tensor goes through the plain
+PyTorch version beside it; a CUDA tensor launches the hand-written kernel
+(csrc/sort_rows.cu, csrc/sort_vote.cu, csrc/lex_rank.cu) or raises. Both
+give the same integers: an integer sort's output is unique, and the
+kernels' tie-breaks are the plain versions' tie-breaks.
+
+  B1 sort_rows             ascending sort of each row (torch.sort)
+  B2 sort_vote_rank_rows   sort + run-length vote + top-ncand per row
+     merge_vote_rank_rows  the same over the union of two sorted halves
+  B4 lex_rank_rows         stable lexicographic multi-operand row sort,
+                           first topk columns
+
+Caller contract (the JAX package's kernels/sort.py): invalid vote keys are
+>= BIG = 2^30 and sort to the row's tail; kernels pad rows to a power of
+two >= 128 with PAD = INT32_MAX.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from ghostm_tpu_torch.kernels import _build
+
+PAD = 0x7FFFFFFF
+BIG = 1 << 30          # first invalid key value (matches candidates.BIG)
+_LANES = 128           # the top-ncand output width of the JAX kernel
+MAX_SMEM_ROW = 48 << 10  # bytes of one row in static shared memory
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _row_len(M: int) -> int:
+    """Power-of-two padded row length, >= 128 (sort.py's L)."""
+    return max(1 << max(M - 1, 1).bit_length(), _LANES)
+
+
+def _check_run(M: int, presorted_run: int) -> int:
+    run = max(presorted_run, 1)
+    if run & (run - 1) or (run > 1 and M % run):
+        raise ValueError(f"presorted_run={presorted_run} invalid for M={M}")
+    return run
+
+
+def _check_cuda(*xs: torch.Tensor) -> None:
+    for x in xs:
+        if x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous int32, got "
+                             f"{x.dtype} contiguous={x.is_contiguous()}")
+        if x.device != xs[0].device:
+            raise ValueError("kernel inputs must share one device")
+
+
+def _check_row_smem(L: int, arrays: int = 1) -> None:
+    if L * 4 * arrays > MAX_SMEM_ROW:
+        raise NotImplementedError(
+            f"row length {L} x {arrays} int32 arrays exceeds 48 KB of shared "
+            "memory per block: long-read rows are not ported yet"
+        )
+
+
+# ---------------------------------------------------------------------------
+# plain run-length vote (candidates._per_query, smooth=False, chain_gamma=0)
+# ---------------------------------------------------------------------------
+
+def vote_top(k: torch.Tensor, ncand: int, min_votes: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k: (Q, M) int32 packed hit keys, each row SORTED ascending (invalid
+    = BIG and above, at the tail). Returns (keys, votes), each (Q, ncand)
+    int32, by (votes desc, key asc); key BIG where votes == 0. Row-batched
+    port of the JAX package's candidates._per_query."""
+    Q, M = k.shape
+    dev = k.device
+    valid = k < BIG
+    first = torch.cat([valid[:, :1], (k[:, 1:] != k[:, :-1]) & valid[:, 1:]],
+                      dim=1)
+    idx = torch.arange(M, dtype=torch.int32, device=dev).expand(Q, M)
+    # next run boundary per position; invalid positions are boundaries too
+    bnd = first | ~valid
+    big = torch.full_like(k, BIG)
+    s_next = torch.cat([torch.where(bnd, idx, big)[:, 1:],
+                        torch.full((Q, 1), M, dtype=torch.int32, device=dev)],
+                       dim=1)
+    next_start = torch.flip(torch.cummin(torch.flip(s_next, [1]), 1).values,
+                            [1])
+    zero = torch.zeros_like(k)
+    votes = torch.where(first, next_start - idx, zero)
+    votes = torch.where(votes >= min_votes, votes, zero)
+    rows = torch.arange(Q, device=dev)
+    top_keys, top_votes = [], []
+    shift = M.bit_length()
+    if 2 * shift > 31:
+        # (votes << shift | idx) overflows int32: two reductions per pick
+        vcur = votes
+        for _ in range(ncand):
+            v = vcur.max(dim=1).values
+            i = torch.where(vcur == v[:, None], idx,
+                            torch.full_like(idx, M - 1)).min(dim=1).values
+            top_votes.append(v)
+            top_keys.append(torch.where(v > 0, k[rows, i.long()],
+                                        torch.full_like(v, BIG)))
+            vcur = torch.where(idx == i[:, None], zero, vcur)
+        return torch.stack(top_keys, 1), torch.stack(top_votes, 1)
+    # pack = (votes, M-1-idx): max picks (votes desc, idx asc); run starts
+    # are key-ascending in idx, so idx asc == key asc
+    pk = (votes << shift) | (M - 1 - idx)
+    mask = (1 << shift) - 1
+    for _ in range(ncand):
+        m = pk.max(dim=1).values
+        v = m >> shift
+        i = (M - 1) - (m & mask)
+        top_votes.append(v)
+        top_keys.append(torch.where(v > 0, k[rows, i.long()],
+                                    torch.full_like(v, BIG)))
+        pk = torch.where(idx == i[:, None], zero, pk)
+    return torch.stack(top_keys, 1), torch.stack(top_votes, 1)
+
+
+# ---------------------------------------------------------------------------
+# B1: row sort
+# ---------------------------------------------------------------------------
+
+def sort_rows_plain(x: torch.Tensor, presorted_run: int = 0) -> torch.Tensor:
+    _check_run(x.shape[1], presorted_run)
+    return torch.sort(x, dim=1).values
+
+
+def sort_rows(x: torch.Tensor, presorted_run: int = 0) -> torch.Tensor:
+    """Ascending sort of each row of a (Q, M) int32 array; equals
+    torch.sort(x, 1). presorted_run = 2^p > 1: the caller guarantees every
+    aligned 2^p block of a row is sorted ascending for even block index
+    and descending for odd (the state after bitonic stage p), so the
+    kernel starts at stage p + 1. Replaces the JAX package's
+    kernels/sort.py::sort_rows (Pallas _sort_kernel)."""
+    if x.device.type == "cpu":
+        return sort_rows_plain(x, presorted_run)
+    Q, M = x.shape
+    run = _check_run(M, presorted_run)
+    L = _row_len(M)
+    _check_cuda(x)
+    _check_row_smem(L)
+    out = torch.empty_like(x)
+    if Q == 0:
+        return out
+    lib = _build.load("sort_rows")
+    fn = lib.ghostm_sort_rows
+    fn.argtypes = [_P, _P, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    _build.check(fn(x.data_ptr(), out.data_ptr(), Q, M, L, run.bit_length(),
+                    _build.stream_ptr(x.device)), "sort_rows")
+    _build.LAUNCHES["sort_rows"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B2: fused sort + vote + top-ncand (monolithic and merge entries)
+# ---------------------------------------------------------------------------
+
+def _check_vote(L: int, ncand: int) -> None:
+    if 2 * L.bit_length() > 31:
+        raise ValueError(f"row length {L} overflows packed in-kernel top-k")
+    if ncand > _LANES:
+        raise ValueError(f"ncand={ncand} exceeds kernel lane width {_LANES}")
+
+
+def sort_vote_rank_rows_plain(x, ncand: int, min_votes: int,
+                              presorted_run: int = 0):
+    Q, M = x.shape
+    _check_run(M, presorted_run)
+    _check_vote(_row_len(M), ncand)
+    return vote_top(torch.sort(x, dim=1).values, ncand, min_votes)
+
+
+def sort_vote_rank_rows(x: torch.Tensor, ncand: int, min_votes: int,
+                        presorted_run: int = 0):
+    """Fused sort + run-length vote + top-ncand of each row of a (Q, M)
+    int32 key array (invalid keys >= BIG). Returns (top_keys, top_votes),
+    each (Q, ncand) int32. Replaces kernels/sort.py::sort_vote_rank_rows
+    (Pallas _sort_vote_kernel, monolithic entry)."""
+    if x.device.type == "cpu":
+        return sort_vote_rank_rows_plain(x, ncand, min_votes, presorted_run)
+    Q, M = x.shape
+    run = _check_run(M, presorted_run)
+    L = _row_len(M)
+    _check_vote(L, ncand)
+    _check_cuda(x)
+    _check_row_smem(L)
+    keys = torch.empty((Q, ncand), dtype=torch.int32, device=x.device)
+    votes = torch.empty_like(keys)
+    if Q == 0:
+        return keys, votes
+    first = min(run.bit_length(), L.bit_length())
+    lib = _build.load("sort_vote")
+    fn = lib.ghostm_sort_vote_rows
+    fn.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
+    fn.restype = _I
+    _build.check(fn(x.data_ptr(), None, Q, M, 0, L, first, ncand, min_votes,
+                    keys.data_ptr(), votes.data_ptr(),
+                    _build.stream_ptr(x.device)), "sort_vote_rank_rows")
+    _build.LAUNCHES["sort_vote_rank_rows"] += 1
+    return keys, votes
+
+
+def _check_merge(La: int, Mb: int) -> None:
+    if Mb > La or La & (La - 1) or La < _LANES:
+        raise ValueError(f"merge needs pow2 La >= {_LANES} >= Mb; "
+                         f"got La={La} Mb={Mb}")
+
+
+def merge_vote_rank_rows_plain(a, b, ncand: int, min_votes: int):
+    La, Mb = a.shape[1], b.shape[1]
+    _check_merge(La, Mb)
+    _check_vote(2 * La, ncand)
+    return vote_top(torch.sort(torch.cat([a, b], dim=1), dim=1).values,
+                    ncand, min_votes)
+
+
+def merge_vote_rank_rows(a: torch.Tensor, b: torch.Tensor, ncand: int,
+                         min_votes: int):
+    """Vote + top-ncand over the UNION of two row-sorted key arrays:
+    a (Q, La) with La a power of two >= 128, b (Q, Mb) with Mb <= La.
+    The kernel reads [a | PAD | flip(b)] (a bitonic row) straight from a
+    and b and runs only the final bitonic merge stage. Replaces
+    kernels/sort.py::merge_vote_rank_rows (Pallas _sort_vote_kernel,
+    merge entry)."""
+    if a.device.type == "cpu":
+        return merge_vote_rank_rows_plain(a, b, ncand, min_votes)
+    Q, La = a.shape
+    Mb = b.shape[1]
+    _check_merge(La, Mb)
+    L = 2 * La
+    _check_vote(L, ncand)
+    _check_cuda(a, b)
+    if b.shape[0] != Q:
+        raise ValueError(f"row counts differ: {Q} vs {b.shape[0]}")
+    _check_row_smem(L)
+    keys = torch.empty((Q, ncand), dtype=torch.int32, device=a.device)
+    votes = torch.empty_like(keys)
+    if Q == 0:
+        return keys, votes
+    lib = _build.load("sort_vote")
+    fn = lib.ghostm_sort_vote_rows
+    fn.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
+    fn.restype = _I
+    _build.check(fn(a.data_ptr(), b.data_ptr(), Q, La, Mb, L,
+                    L.bit_length() - 1, ncand, min_votes, keys.data_ptr(),
+                    votes.data_ptr(), _build.stream_ptr(a.device)),
+                 "merge_vote_rank_rows")
+    _build.LAUNCHES["merge_vote_rank_rows"] += 1
+    return keys, votes
+
+
+# ---------------------------------------------------------------------------
+# B4: stable lexicographic multi-operand rank
+# ---------------------------------------------------------------------------
+
+def lex_rank_rows_plain(ops: torch.Tensor, num_keys: int, topk: int):
+    """Stable sort by keys ops[0..num_keys), last key first: each pass is a
+    stable torch.sort over the permutation so far, so the original column
+    breaks full-key ties."""
+    nops, Q, M = ops.shape
+    topk = min(topk, M)
+    perm = torch.arange(M, device=ops.device).expand(Q, M)
+    for key in reversed(range(num_keys)):
+        vals = torch.gather(ops[key], 1, perm)
+        order = torch.sort(vals, dim=1, stable=True).indices
+        perm = torch.gather(perm, 1, order)
+    perm = perm[:, :topk]
+    return torch.stack([torch.gather(op, 1, perm) for op in ops])
+
+
+def lex_rank_rows(ops: torch.Tensor, num_keys: int, topk: int) -> torch.Tensor:
+    """ops: (nops, Q, M) int32. Sorts each row ascending-lexicographically
+    on ops[0..num_keys) with the original column as the final key, and
+    returns the first min(topk, M) columns of every operand:
+    (nops, Q, min(topk, M)). Replaces kernels/sort.py::lex_rank_rows
+    (Pallas _lex_rank_kernel)."""
+    if ops.device.type == "cpu":
+        return lex_rank_rows_plain(ops, num_keys, topk)
+    nops, Q, M = ops.shape
+    if not 1 <= num_keys <= nops:
+        raise ValueError(f"num_keys={num_keys} not in [1, {nops}]")
+    topk = min(topk, M)
+    L = 1 << max(M - 1, 1).bit_length()   # 48 -> 64: no 128-lane floor here
+    _check_cuda(ops)
+    _check_row_smem(L, nops + 1)
+    out = torch.empty((nops, Q, topk), dtype=torch.int32, device=ops.device)
+    if Q == 0:
+        return out
+    lib = _build.load("lex_rank")
+    fn = lib.ghostm_lex_rank_rows
+    fn.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    _build.check(fn(ops.data_ptr(), out.data_ptr(), nops, Q, M, L, num_keys,
+                    topk, _build.stream_ptr(ops.device)), "lex_rank_rows")
+    _build.LAUNCHES["lex_rank_rows"] += 1
+    return out

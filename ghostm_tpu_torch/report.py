@@ -1,0 +1,199 @@
+"""Result ranking, traceback statistics, and BLAST-m8 TSV output.
+
+Reference equivalent: GHOSTM's per-query ranked hit table (SURVEY.md §1.1
+step 5; m8-style TSV is the family convention — mount empty, SURVEY.md §0).
+Columns: qseqid sseqid pident length mismatch gapopen qstart qend sstart
+send evalue bitscore. Query coordinates are reported in DNA space with
+BLASTX frame convention (qstart > qend on the reverse strand); subject
+coordinates are 1-based residue positions.
+
+Ranking is by integer raw score with the deterministic tie-break
+(-score, subject_id, frame, qend, subject_end); E-values are computed in
+float64 on the host and REPORTED, never sorted on (SURVEY.md §7.2).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, TextIO
+
+import numpy as np
+
+from ghostm_tpu_torch.config import Config
+from ghostm_tpu_torch.ops import evalue as ev
+
+M8_HEADER = (
+    "qseqid\tsseqid\tpident\tlength\tmismatch\tgapopen\t"
+    "qstart\tqend\tsstart\tsend\tevalue\tbitscore"
+)
+
+
+def traceback_stats(
+    moves: np.ndarray,  # (n, Lq, B) uint8 — encoding in kernels/sw_xla.py
+    ie: np.ndarray,
+    be: np.ndarray,
+    qc: np.ndarray,     # (n, Lq) query codes
+    w: np.ndarray,      # (n, Lq + B) window codes
+) -> Dict[str, np.ndarray]:
+    """Vectorised walk of the move matrices from each endpoint.
+
+    Returns qstart/qend (frame-local aa, inclusive), sstart/send
+    (window-local j = i + b, inclusive), length/matches/mismatch/gapopen.
+    Entries with ie < 0 (empty alignment) get coords -1 and zero stats.
+    """
+    n, Lq, B = moves.shape
+    i = ie.astype(np.int64).copy()
+    b = be.astype(np.int64).copy()
+    alive = i >= 0
+    st = np.where(alive, 0, 3).astype(np.int8)  # 0=H 1=E 2=F 3=done
+    qstart = np.where(alive, i, -1)
+    sstart = np.where(alive, i + b, -1)
+    length = np.zeros(n, np.int32)
+    matches = np.zeros(n, np.int32)
+    mismatch = np.zeros(n, np.int32)
+    gapopen = np.zeros(n, np.int32)
+    ii = np.clip(i, 0, Lq - 1)
+    for _ in range(2 * (Lq + B) + 4):
+        if not (st < 3).any():
+            break
+        ii = np.clip(i, 0, Lq - 1)
+        bb = np.clip(b, 0, B - 1)
+        mv = moves[np.arange(n), ii, bb]
+        inH = st == 0
+        c = mv & 3
+        # H-state transitions
+        stop = inH & ((c == 0) | (i < 0) | (b < 0) | (b >= B))
+        diag = inH & ~stop & (c == 1)
+        toE = inH & ~stop & (c == 2)
+        toF = inH & ~stop & (c == 3)
+        # diag consumes (i, j)
+        qchar = qc[np.arange(n), ii]
+        schar = w[np.arange(n), np.clip(ii + bb, 0, Lq + B - 1)]
+        eq = (qchar == schar) & diag
+        matches += eq
+        mismatch += diag & ~eq
+        length += diag
+        qstart = np.where(diag, i, qstart)
+        sstart = np.where(diag, i + b, sstart)
+        i = np.where(diag, i - 1, i)
+        st = np.where(stop, 3, st)
+        st = np.where(toE, 1, st)
+        st = np.where(toF, 2, st)
+        # E-state: gap in query, consumes subject j; move b-1
+        inE = st == 1
+        eopen = ((mv >> 2) & 1).astype(bool)
+        length += inE
+        sstart = np.where(inE, i + b - 1, sstart)
+        b = np.where(inE, b - 1, b)
+        gapopen += inE & eopen
+        st = np.where(inE & eopen, 0, st)
+        # F-state: gap in subject, consumes query i; move (i-1, b+1)
+        inF = st == 2
+        fopen = ((mv >> 3) & 1).astype(bool)
+        length += inF
+        qstart = np.where(inF, i, qstart)
+        i = np.where(inF, i - 1, i)
+        b = np.where(inF, b + 1, b)
+        gapopen += inF & fopen
+        st = np.where(inF & fopen, 0, st)
+        # walked off the top => done
+        st = np.where((st == 0) & (i < 0), 3, st)
+    empty = ie < 0
+    out = dict(
+        qstart=np.where(empty, -1, qstart).astype(np.int32),
+        qend=np.where(empty, -1, ie).astype(np.int32),
+        sstart=np.where(empty, -1, sstart).astype(np.int32),
+        send=np.where(empty, -1, ie + be).astype(np.int32),
+        length=length, matches=matches, mismatch=mismatch, gapopen=gapopen,
+    )
+    return out
+
+
+def frame_to_dna_coords(
+    frame: np.ndarray, qstart_aa: np.ndarray, qend_aa: np.ndarray,
+    read_len: np.ndarray,
+):
+    """Frame-local aa coords -> 1-based DNA read coords, BLASTX convention.
+
+    Forward frame f in {0,1,2}: residue p covers bases [f+3p, f+3p+2] (0-based)
+      -> qstart = f + 3*qstart_aa + 1, qend = f + 3*qend_aa + 3.
+    Reverse frame f in {3,4,5} (offset o = f-3 on the revcomp): residue p
+    covers revcomp bases [o+3p, o+3p+2] which are original read positions
+    [L-1-(o+3p+2), L-1-(o+3p)] -> reported qstart = L - (o + 3*qstart_aa)
+    (the larger coordinate), qend = L - (o + 3*qend_aa + 2), qstart > qend.
+    """
+    f = frame.astype(np.int64)
+    L = read_len.astype(np.int64)
+    qs, qe = qstart_aa.astype(np.int64), qend_aa.astype(np.int64)
+    fwd = f < 3
+    o = np.where(fwd, f, f - 3)
+    dstart = np.where(fwd, o + 3 * qs + 1, L - (o + 3 * qs))
+    dend = np.where(fwd, o + 3 * qe + 3, L - (o + 3 * qe + 2))
+    return dstart, dend
+
+
+def write_hits(
+    out: TextIO,
+    cfg: Config,
+    read_names: List[str],
+    read_lens: np.ndarray,
+    subject_names: Dict[int, str],
+    hits,          # engine.BatchHits
+    stats: Dict[str, np.ndarray],
+    db_residues: int,
+    db_seqs: int = 0,
+) -> int:
+    """Append m8 rows for one batch; returns number of rows written.
+
+    Stats coords arrive window-local (j = i + b); the engine's s_end is
+    subject-local, so subject-local sstart follows from the window span:
+    s_start_sub = s_end_sub - (send_window - sstart_window).
+    """
+    R, K = hits.score.shape
+    nR = min(R, len(read_names))
+    lam, kk, kh = cfg.ka_params()
+    # Vectorised column computation + filter; the Python loop below only
+    # formats the few surviving rows (the per-(r,k) loop with 1-element
+    # numpy calls cost ~0.45 s per 4096-read batch — ~50x this path).
+    # All float math is float64 in the same expression order as the old
+    # per-row code, so the formatted text is identical.
+    sc = hits.score[:nR].astype(np.int64)
+    qlen_aa = np.maximum(read_lens[:nR].astype(np.int64) // 3, 1)
+    # BLAST effective-length correction when H and the sequence count are
+    # known (ops/evalue.py); plain K*m*n search space otherwise.
+    e = ev.e_value(
+        sc.reshape(-1), np.repeat(qlen_aa, K), db_residues, lam, kk,
+        h=kh, db_seqs=db_seqs,
+    ).reshape(nR, K)
+    keep = (sc > 0) & (e <= cfg.evalue_cutoff)
+    r_idx, k_idx = np.nonzero(keep)
+    if r_idx.size == 0:
+        return 0
+    span = stats["send"][:nR] - stats["sstart"][:nR]
+    s_end_sub = hits.s_end[:nR].astype(np.int64) + 1    # 1-based inclusive
+    s_start_sub = s_end_sub - span
+    qs_dna, qe_dna = frame_to_dna_coords(
+        hits.frame[:nR].reshape(-1),
+        stats["qstart"][:nR].reshape(-1),
+        stats["qend"][:nR].reshape(-1),
+        np.repeat(read_lens[:nR], K),
+    )
+    qs_dna = qs_dna.reshape(nR, K)
+    qe_dna = qe_dna.reshape(nR, K)
+    length = stats["length"][:nR]
+    matches = stats["matches"][:nR]
+    pident = 100.0 * matches / np.maximum(length, 1)
+    bits = ev.bit_score(sc.reshape(-1), lam, kk).reshape(nR, K)
+    mismatch = stats["mismatch"][:nR]
+    gapopen = stats["gapopen"][:nR]
+    gsid = hits.gsid[:nR]
+    lines = []
+    for r, k in zip(r_idx.tolist(), k_idx.tolist()):
+        lines.append(
+            f"{read_names[r]}\t{subject_names[int(gsid[r, k])]}\t"
+            f"{pident[r, k]:.2f}\t{length[r, k]}\t{mismatch[r, k]}\t"
+            f"{gapopen[r, k]}\t{qs_dna[r, k]}\t{qe_dna[r, k]}\t"
+            f"{s_start_sub[r, k]}\t{s_end_sub[r, k]}\t{e[r, k]:.2e}\t"
+            f"{bits[r, k]:.1f}\n"
+        )
+    out.write("".join(lines))
+    return len(lines)

@@ -1,0 +1,146 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card
+(integer outputs: equal), and the CUDA engine against the CPU engine.
+
+CUDA kernels have no CPU mode, so every test here needs an NVIDIA GPU with
+nvcc and skips without one. Run on the card with
+    python -m pytest tests/test_torch_cuda.py -m cuda
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from ghostm_tpu_torch.kernels import _build, sw_fused
+from ghostm_tpu_torch.kernels import sort as S
+from ghostm_tpu_torch.ops.scoring import padded_matrix
+
+pytestmark = pytest.mark.cuda
+BIG = 1 << 30
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _keys(gen, q, m, run, hi, dev, big_frac=0.4):
+    k = torch.randint(0, hi, (q, m), generator=gen, dtype=torch.int32)
+    k[torch.rand((q, m), generator=gen) < big_frac] = BIG
+    if run > 1:
+        k = torch.sort(k.view(q, m // run, run), dim=2).values
+        k[:, 1::2] = torch.flip(k[:, 1::2], [2])
+    return k.reshape(q, m).contiguous().to(dev)
+
+
+def _launched(name, fn):
+    before = _build.LAUNCHES[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("q,m,run", [
+    (5, 7, 0), (128, 1, 0), (33, 300, 0), (64, 4096, 128), (64, 512, 128),
+    (8, 8192, 0), (16, 2048, 2048),
+])
+def test_sort_rows_kernel(dev, q, m, run):
+    gen = torch.Generator().manual_seed(q * m)
+    x = _keys(gen, q, m, run or 1, 1 << 30, dev, 0.0)
+    if run == 0:
+        x = torch.randint(-(1 << 31), (1 << 31) - 1, (q, m), generator=gen,
+                          dtype=torch.int32).to(dev)
+    got = _launched("sort_rows", lambda: S.sort_rows(x, presorted_run=run))
+    assert torch.equal(got, S.sort_rows_plain(x, presorted_run=run))
+
+
+@pytest.mark.parametrize("q,m,run,minv,hi", [
+    (768, 608, 16, 1, 1 << 10), (40, 96, 1, 1, 64), (16, 640, 128, 2, 1000),
+    (9, 4096, 0, 1, 50), (3, 128, 128, 1, 4),
+])
+def test_sort_vote_kernel(dev, q, m, run, minv, hi):
+    gen = torch.Generator().manual_seed(m + run)
+    x = _keys(gen, q, m, run or 1, hi, dev)
+    got = _launched("sort_vote_rank_rows",
+                    lambda: S.sort_vote_rank_rows(x, 8, minv, run))
+    want = S.sort_vote_rank_rows_plain(x, 8, minv, run)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("q,la,mb,minv,hi", [
+    (256, 4096, 512, 1, 1 << 12), (64, 128, 1, 1, 50),
+    (32, 1024, 1024, 2, 300), (16, 2048, 7, 1, 1 << 20),
+])
+def test_merge_vote_kernel(dev, q, la, mb, minv, hi):
+    gen = torch.Generator().manual_seed(la + mb)
+    a = torch.sort(_keys(gen, q, la, 1, hi, dev), dim=1).values.contiguous()
+    b = torch.sort(_keys(gen, q, mb, 1, hi, dev), dim=1).values.contiguous()
+    got = _launched("merge_vote_rank_rows",
+                    lambda: S.merge_vote_rank_rows(a, b, 8, minv))
+    want = S.merge_vote_rank_rows_plain(a, b, 8, minv)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("q,m,nk,nops,topk", [
+    (8192, 48, 5, 9, 10), (100, 16, 3, 3, 8), (10, 100, 2, 4, 100),
+    (50, 64, 3, 7, 64),
+])
+def test_lex_rank_kernel(dev, q, m, nk, nops, topk):
+    gen = torch.Generator().manual_seed(q + m)
+    ops = torch.randint(0, 3, (nops, q, m), generator=gen, dtype=torch.int32)
+    ops[nk:] = torch.randint(-100, 100, (nops - nk, q, m), generator=gen,
+                             dtype=torch.int32)
+    ops = ops.to(dev)
+    got = _launched("lex_rank_rows", lambda: S.lex_rank_rows(ops, nk, topk))
+    assert torch.equal(got, S.lex_rank_rows_plain(ops, nk, topk))
+
+
+@pytest.mark.parametrize("n,lq,band", [
+    (4096, 40, 32), (1000, 40, 16), (513, 24, 64), (300, 96, 32),
+    (200, 40, 128), (100, 300, 48), (64, 40, 18),
+])
+def test_sw_fused_kernel(dev, n, lq, band):
+    gen = torch.Generator().manual_seed(n + lq + band)
+    mat = torch.from_numpy(padded_matrix().astype(np.int32)).to(dev)
+    q = torch.randint(0, 26, (n, lq), generator=gen, dtype=torch.int8)
+    w = torch.randint(0, 26, (n, lq + band + 3), generator=gen,
+                      dtype=torch.int8)
+    w[::2, 3:3 + lq] = q[::2]
+    lo = torch.randint(-4, 8, (n,), generator=gen, dtype=torch.int32)
+    hi = torch.randint(lq // 2, lq + band + 4, (n,), generator=gen,
+                       dtype=torch.int32)
+    q, w, lo, hi = (t.to(dev) for t in (q, w, lo, hi))
+    got = _launched("sw_fused", lambda: sw_fused.sw_fused(
+        q, w, mat, lo, hi, 11, 1, band, 23))
+    want = sw_fused.sw_fused_plain(q, w, mat, lo, hi, 11, 1, band, 23)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    assert int(got[0].max()) > 0
+
+
+def test_engine_cuda_equals_cpu(dev, tmp_path):
+    """Golden config-1 index and reads: the packed step output on CUDA
+    equals the CPU engine's."""
+    from ghostm_tpu_torch.cli import main as cli
+    from ghostm_tpu_torch.config import Config
+    from ghostm_tpu_torch.engine import SearchEngine
+    from ghostm_tpu_torch.index.diskio import load_index
+    from ghostm_tpu_torch.io.fasta import read_batches
+
+    gold = os.path.join(os.path.dirname(__file__), "golden")
+    prefix = str(tmp_path / "idx")
+    assert cli(["db", "-i", os.path.join(gold, "config1_db.fa"),
+                "-o", prefix]) == 0
+    idx = load_index(prefix)
+    cfg = Config(query_batch=128)
+    _, dna, lens = next(read_batches(os.path.join(gold, "config1_reads.fa"),
+                                     128, 120))
+    g = SearchEngine(cfg, idx, device="cuda")
+    c = SearchEngine(cfg, idx, device="cpu", key_table=g.key_table)
+    got = g.fetch(g.search_refine_async_dna(dna, lens))
+    want = c.fetch(c.search_refine_async_dna(dna, lens))
+    np.testing.assert_array_equal(got, want)

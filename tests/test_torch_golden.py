@@ -1,0 +1,52 @@
+"""The port's CLI reproduces the committed config-1 golden byte for byte on
+the CPU (plain versions of the kernels), from an index built by either
+package; what is not ported yet fails with a clear error."""
+
+import os
+
+import pytest
+import torch
+
+from ghostm_tpu.cli import main as jcli
+from ghostm_tpu_torch.cli import main as tcli
+
+# One intra-op thread: the suite runs several pytest workers at once and
+# torch's spinning OpenMP threads would oversubscribe the cores.
+torch.set_num_threads(1)
+
+GOLD = os.path.join(os.path.dirname(__file__), "golden")
+DB = os.path.join(GOLD, "config1_db.fa")
+READS = os.path.join(GOLD, "config1_reads.fa")
+
+
+@pytest.mark.parametrize("db_pkg", ["ghostm_tpu_torch", "ghostm_tpu"])
+def test_config1_golden_cpu(tmp_path, db_pkg):
+    prefix = str(tmp_path / "idx")
+    out = str(tmp_path / "hits.tsv")
+    db = tcli if db_pkg == "ghostm_tpu_torch" else jcli
+    assert db(["db", "-i", DB, "-o", prefix]) == 0
+    assert tcli(["aln", "-d", prefix, "-i", READS, "-o", out, "--device",
+                 "cpu", "--no-pallas", "--batch", "128"]) == 0
+    with open(out) as f, open(os.path.join(GOLD, "config1_hits.tsv")) as g:
+        assert f.read() == g.read(), "port's config-1 hit table differs"
+
+
+def test_blosum50_not_ported(tmp_path):
+    prefix = str(tmp_path / "idx")
+    assert tcli(["db", "-i", DB, "-o", prefix]) == 0
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tcli(["aln", "-d", prefix, "-i", READS, "-o", str(tmp_path / "h"),
+              "--device", "cpu", "--matrix", "BLOSUM50", "--gap-open", "13",
+              "--gap-extend", "2"])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--check"], ["--data-axis", "2"], ["--chain-gamma", "2"],
+    ["--num-processes", "2"], ["--debug-nans"], ["--profile", "p"],
+])
+def test_cli_rejects_unported_flags(tmp_path, capsys, flags):
+    with pytest.raises(SystemExit) as e:
+        tcli(["aln", "-d", "x", "-i", READS, "-o", str(tmp_path / "h"),
+              "--device", "cpu", *flags])
+    assert e.value.code == 2
+    assert "not ported yet" in capsys.readouterr().err

@@ -1,0 +1,147 @@
+"""Port kernels B1/B2/B4 (plain PyTorch versions, the path a CPU tensor
+takes) against the JAX package's Pallas kernels in interpret mode, and the
+port's vote_and_rank against the JAX one. Tolerance 0: int32 throughout."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax import lax
+
+from ghostm_tpu.kernels import candidates as jcand
+from ghostm_tpu.kernels import sort as jsort
+from ghostm_tpu_torch.kernels import candidates as tcand
+from ghostm_tpu_torch.kernels import sort as tsort
+
+# One intra-op thread: the suite runs several pytest workers at once and
+# torch's spinning OpenMP threads would oversubscribe the cores.
+torch.set_num_threads(1)
+
+BIG = 1 << 30
+
+
+def _presorted(keys, run):
+    """Even runs ascending, odd runs descending (the bitonic stage-skip
+    precondition the engine builds)."""
+    q, m = keys.shape
+    k3 = np.sort(keys.reshape(q, m // run, run), axis=2)
+    k3[:, 1::2] = k3[:, 1::2, ::-1]
+    return np.ascontiguousarray(k3.reshape(q, m))
+
+
+def _eq(t, j):
+    np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+@pytest.mark.parametrize("q,m,run", [
+    (8, 128, 0), (16, 100, 0), (5, 7, 0), (128, 1, 0),
+    (8, 256, 16), (8, 512, 512), (4, 640, 128),
+])
+def test_sort_rows_matches_jax(rng, q, m, run):
+    x = rng.integers(-(1 << 30), 1 << 30, (q, m)).astype(np.int32)
+    if run:
+        x[rng.random((q, m)) < 0.3] = BIG
+        x = _presorted(x, run)
+    got = tsort.sort_rows(torch.from_numpy(x), presorted_run=run)
+    _eq(got, jsort.sort_rows(jnp.asarray(x), presorted_run=run,
+                             interpret=True))
+
+
+@pytest.mark.parametrize("q,m,run,minv", [
+    (8, 640, 128, 2), (8, 96, 1, 1), (4, 608, 16, 1),
+])
+def test_sort_vote_rank_rows_matches_jax(rng, q, m, run, minv):
+    """(4, 608, run 16) is the golden config-1 shape (L = 1024)."""
+    keys = rng.integers(0, 40 * 128, (q, m)).astype(np.int32)
+    keys[rng.random((q, m)) < 0.4] = BIG
+    if run > 1:
+        keys = _presorted(keys, run)
+    gk, gv = tsort.sort_vote_rank_rows(torch.from_numpy(keys), 8, minv,
+                                       presorted_run=run)
+    wk, wv = jsort.sort_vote_rank_rows(jnp.asarray(keys), 8, minv,
+                                       presorted_run=run, interpret=True)
+    _eq(gk, wk)
+    _eq(gv, wv)
+
+
+@pytest.mark.parametrize("q,nruns,run,minv", [
+    (4, 36, 128, 1), (6, 6, 256, 2), (4, 5, 1024, 1),
+])
+def test_merge_vote_rank_rows_matches_jax(rng, q, nruns, run, minv):
+    """(36 runs of 128) is config-2's split: (Q, 4096) + (Q, 512)."""
+    m = nruns * run
+    keys = rng.integers(0, 1 << 24, (q, m)).astype(np.int32)
+    keys[rng.random((q, m)) < 0.4] = BIG
+    keys[rng.random((q, m)) < 0.3] = 12345   # votes stack across runs
+    keys = _presorted(keys, run)
+    m1 = run << (nruns.bit_length() - 1)
+    a = np.sort(keys[:, :m1], axis=1)
+    b = np.sort(keys[:, m1:], axis=1)
+    gk, gv = tsort.merge_vote_rank_rows(torch.from_numpy(a),
+                                        torch.from_numpy(b), 8, minv)
+    wk, wv = jsort.merge_vote_rank_rows(jnp.asarray(a), jnp.asarray(b), 8,
+                                        minv, interpret=True)
+    _eq(gk, wk)
+    _eq(gv, wv)
+
+
+@pytest.mark.parametrize("q,m,nk,nops,topk,ties", [
+    (16, 48, 5, 9, 10, False), (8, 16, 3, 3, 8, False),
+    (8, 100, 2, 4, 100, False), (8, 64, 3, 7, 64, True),
+])
+def test_lex_rank_rows_matches_jax(rng, q, m, nk, nops, topk, ties):
+    """ties=True: full-key ties with differing payloads — both sides are
+    stable, so the payload association must match exactly."""
+    if ties:
+        ops = [rng.integers(0, 3, (q, m)) for _ in range(nk)]
+    else:
+        ops = [rng.integers(0, 6, (q, m)) for _ in range(nk - 1)]
+        ops.append(np.stack([rng.permutation(m) for _ in range(q)]))
+    ops += [rng.integers(-50, 1000, (q, m)) for _ in range(nops - nk)]
+    ops = np.stack(ops).astype(np.int32)
+    got = tsort.lex_rank_rows(torch.from_numpy(ops), nk, topk)
+    want = jsort.lex_rank_rows(tuple(jnp.asarray(o) for o in ops), nk, topk,
+                               interpret=True)
+    assert got.shape == (nops, q, min(topk, m))
+    for g, w in zip(got, want):
+        _eq(g, w)
+    ref = lax.sort(tuple(jnp.asarray(o) for o in ops), num_keys=nk)
+    for g, w in zip(got, ref):
+        _eq(g, np.asarray(w)[:, :topk])
+
+
+@pytest.mark.parametrize("q,nruns,run,nbins", [
+    (6, 36, 128, 1 << 12),   # split sort -> merge entry (config-2 shape)
+    (8, 38, 16, 256),        # monolithic entry (golden shape, M = 608)
+    (16, 96, 1, 64),         # no presorted runs
+])
+def test_vote_and_rank_matches_jax(rng, q, nruns, run, nbins):
+    m = nruns * run
+    S = 40
+    keys = rng.integers(0, S * nbins // 4, (q, m)).astype(np.int32)
+    keys[rng.random((q, m)) < 0.3] = BIG
+    if run > 1:
+        keys = _presorted(keys, run)
+    sid = np.arange(S, dtype=np.int32)
+    g, b, v = tcand.vote_and_rank(torch.from_numpy(keys),
+                                  torch.from_numpy(sid), 8, 1, nbins=nbins,
+                                  presorted_run=run)
+    wg, wb, wv = jcand.vote_and_rank(jnp.asarray(keys), jnp.asarray(sid), 8,
+                                     1, False, nbins)
+    _eq(g, wg)
+    _eq(b, wb)
+    _eq(v, wv)
+
+
+def test_select_global_identity_and_multishard_raises():
+    g = torch.tensor([[3, 5]], dtype=torch.int32)
+    b = torch.tensor([[1, 2]], dtype=torch.int32)
+    v = torch.tensor([[2, 0]], dtype=torch.int32)
+    sg, sb, sv = tcand.select_global(g, b, v, 2)
+    assert sg.tolist() == [[3, BIG]] and sb.tolist() == [[1, BIG]]
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tcand.select_global(g, b, v, 1)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tcand.vote_and_rank(g, torch.arange(4, dtype=torch.int32), 1, 1,
+                            chain_gamma=2)
