@@ -13,18 +13,27 @@ Phases, each printing one JSON line ({"phase": ...}):
            the least time the card could take (bound_ms);
   golden   `db` + `aln --batch 128` through the port's CLI on CUDA over
            tests/golden/config1_*, byte-compared with the golden table;
+  golden_b50  the same index through `aln --matrix BLOSUM50 --gap-open 13
+           --gap-extend 2` (the score-fed path, B5), byte-compared with
+           tests/golden/config1_b50_hits.tsv;
   scale    the config-2-true deployment: 570,000 synthetic proteins of
            250-450 aa (numpy default_rng(7)), k = 5, hits_per_seed 128,
            100 bp reads in 8192-read batches through
            SearchEngine.search_refine_async_dna with a background fetch
            (1 warm + 5 timed), then the same batches through the
            pipeline writing m8; a 256-read batch cross-checked against the
-           same engine on device="cpu".
-The launch counters are set to 0 just before each main-path run (the
-golden aln and the scale timed run) and read just after; every kernel must
-have launched in its run. Then a line with the card's name and power
-limit, a line {"kernels": [...]}, and last {"ok": true, "device": ...}.
-Any mismatch or exception exits non-zero; so does a host without CUDA.
+           same engine on device="cpu";
+  scale_b50  the same index and reads scored with BLOSUM50 13/2 (B5 by
+           rows; 1 warm + 3 timed batches, a stage breakdown, the 256-read
+           CPU cross-check);
+  scale_b50_250bp  the same index, BLOSUM50 13/2, 250 bp reads in
+           88-residue frames (B6, the wavefront; its own key table).
+The launch counters are set to 0 just before each main-path run (each
+golden aln and each scale leg's timed run) and read just after; every
+kernel of that path must have launched in its run. Then a line with the
+card's name and power limit, a line {"kernels": [...]}, and last
+{"ok": true, "device": ...}. Any mismatch or exception exits non-zero; so
+does a host without CUDA.
 """
 
 from __future__ import annotations
@@ -46,6 +55,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 OPS_PER_S = 67e12           # H100 SXM non-tensor 32-bit rate (see bound())
 N_SUBJECTS = 570_000
 TIMED_BATCHES = 5            # 8192-read batches after 1 warm batch
+TIMED_B50 = 3                # the same, in each BLOSUM50 leg
+B50 = dict(matrix="BLOSUM50", gap_open=13, gap_extend=2)
 
 
 def emit(**kw):
@@ -107,7 +118,8 @@ def per_kernel(launches: dict) -> dict:
     return {"B1": launches["sort_rows"],
             "B2": launches["sort_vote_rank_rows"]
             + launches["merge_vote_rank_rows"],
-            "B3": launches["sw_fused"], "B4": launches["lex_rank_rows"]}
+            "B3": launches["sw_fused"], "B4": launches["lex_rank_rows"],
+            "B5": launches["sw_scored"], "B6": launches["sw_wave"]}
 
 
 def max_err(a, b) -> int:
@@ -121,7 +133,10 @@ def kernel_phase(dev):
     """Each kernel at its main-path shape vs its plain version."""
     from ghostm_tpu_torch.kernels import sort as S
     from ghostm_tpu_torch.kernels import sw_fused as F
-    from ghostm_tpu_torch.ops.scoring import padded_matrix
+    from ghostm_tpu_torch.kernels import sw_scored as SF
+    from ghostm_tpu_torch.kernels import sw_wave as SW
+    from ghostm_tpu_torch.kernels import sw_xla as X
+    from ghostm_tpu_torch.ops.scoring import LOW, padded_matrix
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -130,7 +145,7 @@ def kernel_phase(dev):
     entries = []
 
     def run(name, source, replaces, kern, plain, library, nbytes, nops,
-            ops_note, reps=20):
+            ops_note, reps=20, **extra):
         out_k, out_p = kern(), plain()
         torch.cuda.synchronize()
         err = max_err(out_k, out_p)
@@ -142,11 +157,12 @@ def kernel_phase(dev):
         e = dict(name=name, route="cuda", source=source, replaces=replaces,
                  equal=equal, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                  library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                 bytes=nbytes, ops=nops, ops_counted=ops_note)
+                 bytes=nbytes, ops=nops, ops_counted=ops_note, **extra)
         emit(phase="kernels", **e)
         entries.append(e)
         if not equal:
             raise SystemExit(f"{name}: kernel differs from its plain version")
+        return out_k
 
     def sort_ops(q, L, first, extra_per_elem=0):
         passes = sum(range(first, L.bit_length()))
@@ -211,43 +227,130 @@ def kernel_phase(dev):
         lambda: S.lex_rank_rows_plain(ops, 5, 10),
         None, ops.numel() * 4 + nops * R * 10 * 4, R * 21 * 32 * 26,
         "26 per compare-exchange (6 compares + 20 moves), 21 passes at L=64")
-    del x, k1, keys, a, b, q, w, lo, hi, ops, flush
+    # B5 / B6: the score-fed chunks the engine launches at config-2-true
+    # with BLOSUM50 (8192 alignments a chunk), from related and unrelated
+    # pairs as for B3; bound: the tile read once + 3 outputs, 12 ops a cell
+    mat50 = torch.from_numpy(padded_matrix("BLOSUM50").astype(np.int32)
+                             ).to(dev)
+    climit50 = F.build_packed_matrix(padded_matrix("BLOSUM50",
+                                                   hard_stop=True))[1]
+
+    def pairs(n, lq, band):
+        q = torch.randint(0, 26, (n, lq), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(0, 26, (n, lq + band), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w[::2, 8:8 + lq] = q[::2]
+        lo = torch.randint(0, 8, (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        hi = torch.randint(lq // 2, lq + band, (n,), generator=gen,
+                           device=dev, dtype=torch.int32)
+        return q, w, lo, hi
+
+    def tile(q, w, lo, hi, band, int8):
+        if int8:
+            return X.banded_scores_i8(q, w, mat50, band,
+                                      torch.zeros_like(lo), lo, hi)
+        sc = X.banded_scores(q, w, mat50, band)
+        inb = X.in_span(torch.zeros_like(lo), lo, hi, q.shape[1], band)
+        return torch.where(inb, sc, torch.full_like(sc, LOW))
+
+    N, Lq, B = 8192, 40, 32
+    q, w, lo, hi = pairs(N, Lq, B)
+    sc = tile(q, w, lo, hi, B, True)
+    # B3 on the same alignments and matrix: its int8 table holds
+    # BLOSUM50's [-5, 15]; a yardstick only, no route changes
+    fused = lambda: F.sw_fused(q, w, mat50, lo, hi, 13, 2, B, climit50)
+    same = max_err(fused(), SF.sw_banded_scored_plain(sc, 13, 2))
+    run("B5 sw_scored", "ghostm_tpu_torch/csrc/sw_scored.cu",
+        "ghostm_tpu/kernels/sw_pallas.py:57",
+        lambda: SF.sw_banded_scored(sc, 13, 2),
+        lambda: SF.sw_banded_scored_plain(sc, 13, 2),
+        None, sc.numel() + 3 * N * 4, 12 * N * Lq * B,
+        "12 int32 ops per DP cell", shape=[N, Lq, B], dtype="int8",
+        fused_same_work_ms=time_ms(fused, 20, flush),
+        fused_same_work_max_abs_err=same)
+    N, Lq, B = 8192, 40, 24
+    q, w, lo, hi = pairs(N, Lq, B)
+    sc = tile(q, w, lo, hi, B, False)
+    run("B5 sw_scored (int32 tiles)", "ghostm_tpu_torch/csrc/sw_scored.cu",
+        "ghostm_tpu/kernels/sw_pallas.py:57",
+        lambda: SF.sw_banded_scored(sc, 13, 2),
+        lambda: SF.sw_banded_scored_plain(sc, 13, 2),
+        None, sc.numel() * 4 + 3 * N * 4, 12 * N * Lq * B,
+        "12 int32 ops per DP cell", shape=[N, Lq, B], dtype="int32")
+    N, Lq, B = 8192, 88, 32
+    q, w, lo, hi = pairs(N, Lq, B)
+    sc = tile(q, w, lo, hi, B, True)
+    run("B6 sw_wave", "ghostm_tpu_torch/csrc/sw_wave.cu",
+        "ghostm_tpu/kernels/sw_wave.py:75",
+        lambda: SW.sw_banded_wave(sc, 13, 2),
+        lambda: SW.sw_banded_wave_plain(sc, 13, 2),
+        None, sc.numel() + 3 * N * 4, 12 * N * Lq * B,
+        "12 int32 ops per DP cell", shape=[N, Lq, B], dtype="int8")
+    del x, k1, keys, a, b, q, w, lo, hi, sc, ops, flush
     torch.cuda.empty_cache()
     return entries
 
 
-def golden_phase():
-    """db + aln --batch 128 through the port's CLI on CUDA."""
+def golden_phase(prefix: str, tag: str, flags, gold: str, need,
+                 forbid=()):
+    """`aln --batch 128 --device cuda` through the port's CLI over the
+    config-1 index `prefix` and reads, byte-compared with tests/golden/
+    `gold`; the kernels in `need` must launch in that run, those in
+    `forbid` must not."""
     from ghostm_tpu_torch.cli import main as cli
     from ghostm_tpu_torch.kernels import _build
 
-    gold = os.path.join(ROOT, "tests", "golden")
+    golds = os.path.join(ROOT, "tests", "golden")
     with tempfile.TemporaryDirectory() as d:
-        prefix, out = os.path.join(d, "idx"), os.path.join(d, "hits.tsv")
-        if cli(["db", "-i", os.path.join(gold, "config1_db.fa"),
-                "-o", prefix]) != 0:
-            raise SystemExit("golden: db failed")
+        out = os.path.join(d, "hits.tsv")
         _build.reset_launches()
         t0 = time.time()
         if cli(["aln", "-d", prefix, "-i",
-                os.path.join(gold, "config1_reads.fa"), "-o", out,
-                "--batch", "128", "--device", "cuda"]) != 0:
-            raise SystemExit("golden: aln failed")
+                os.path.join(golds, "config1_reads.fa"), "-o", out,
+                "--batch", "128", "--device", "cuda", *flags]) != 0:
+            raise SystemExit(f"{tag}: aln failed")
         wall = time.time() - t0
         launches = dict(_build.LAUNCHES)
-        with open(out) as f, open(os.path.join(gold,
-                                               "config1_hits.tsv")) as g:
+        with open(out) as f, open(os.path.join(golds, gold)) as g:
             got, want = f.read(), g.read()
     match = got == want
-    emit(phase="golden", match=match, rows=len(got.splitlines()) - 1,
+    emit(phase=tag, match=match, rows=len(got.splitlines()) - 1,
          aln_s=wall, launches=launches, kernel_launches=per_kernel(launches))
     if not match:
-        raise SystemExit("golden: the CUDA hit table differs from "
-                         "tests/golden/config1_hits.tsv")
-    for k in ("sort_vote_rank_rows", "sw_fused", "lex_rank_rows"):
+        raise SystemExit(f"{tag}: the CUDA hit table differs from "
+                         f"tests/golden/{gold}")
+    for k in need:
         if launches[k] == 0:
-            raise SystemExit(f"golden: kernel {k} was never launched")
+            raise SystemExit(f"{tag}: kernel {k} was never launched")
+    for k in forbid:
+        if launches[k]:
+            raise SystemExit(f"{tag}: kernel {k} was launched")
     return launches
+
+
+def golden_phases():
+    """One config-1 index (`db` through the port's CLI), then the BLOSUM62
+    golden (B3) and the BLOSUM50 golden (score-fed, B5)."""
+    from ghostm_tpu_torch.cli import main as cli
+
+    with tempfile.TemporaryDirectory() as d:
+        prefix = os.path.join(d, "idx")
+        if cli(["db", "-i", os.path.join(ROOT, "tests", "golden",
+                                         "config1_db.fa"),
+                "-o", prefix]) != 0:
+            raise SystemExit("golden: db failed")
+        golden = golden_phase(
+            prefix, "golden", [], "config1_hits.tsv",
+            ("sort_vote_rank_rows", "sw_fused", "lex_rank_rows"))
+        b50 = golden_phase(
+            prefix, "golden_b50", ["--matrix", "BLOSUM50", "--gap-open",
+                                   "13", "--gap-extend", "2"],
+            "config1_b50_hits.tsv",
+            ("sort_vote_rank_rows", "sw_scored", "lex_rank_rows"),
+            forbid=("sw_fused", "sw_wave"))
+    return golden, b50
 
 
 def build_config2_index(n_subjects: int, cfg):
@@ -276,7 +379,7 @@ def build_config2_index(n_subjects: int, cfg):
     return diskio.stack_shards([diskio.IndexShard(st, sidx)], cfg.seed_len)
 
 
-def make_batches(index, n_batches: int, R: int):
+def make_batches(index, n_batches: int, R: int, read_len: int = 100):
     from ghostm_tpu_torch.ops.encode import encode_dna
     from ghostm_tpu_torch.utils.simulate import (
         decode_protein, reads_from_proteins,
@@ -288,8 +391,8 @@ def make_batches(index, n_batches: int, R: int):
     prots = [decode_protein(st.subject_seq(int(p))) for p in pick]
     out = []
     for bi in range(n_batches):
-        names, reads = reads_from_proteins(rng, prots, R, read_len=100)
-        dna = np.full((R, 100), 4, np.int8)
+        names, reads = reads_from_proteins(rng, prots, R, read_len=read_len)
+        dna = np.full((R, read_len), 4, np.int8)
         lens = np.zeros(R, np.int32)
         for i, rd in enumerate(reads):
             c = encode_dna(rd)
@@ -368,33 +471,17 @@ def stage_breakdown(eng, dna: np.ndarray, lens: np.ndarray) -> dict:
                              for r in rows[:12]])
 
 
-def scale_phase(n_subjects: int, n_timed: int):
-    from ghostm_tpu_torch.config import Config
-    from ghostm_tpu_torch.engine import SearchEngine
+def timed_run(eng, batches):
+    """1 warm batch, then the others with the pipeline's overlap: batch
+    i + 1 is launched before batch i is fetched on a background thread.
+    The launch counters are set to 0 after the warm batch. Returns
+    (launches, per-batch host ms, wall s, last payload, peak bytes)."""
     from ghostm_tpu_torch.kernels import _build
-    from ghostm_tpu_torch.pipeline import run_search
-
-    R = 8192
-    cfg = Config(query_batch=R, seed_len=5, hits_per_seed=128)
-    t0 = time.time()
-    index = build_config2_index(n_subjects, cfg)
-    t_index = time.time() - t0
-    t0 = time.time()
-    eng = SearchEngine(cfg, index, device="cuda")
-    torch.cuda.synchronize()
-    t_engine = time.time() - t0
-    batches = make_batches(index, 1 + n_timed, R)
-    emit(phase="scale_setup", subjects=n_subjects,
-         residues=int(index.total_residues), index_s=t_index,
-         engine_init_s=t_engine, table_bytes=int(eng.key_table.nbytes),
-         table_width=eng.table_width, expand=int(index.expand_width))
 
     eng.fetch(eng.search_refine_async_dna(*batches[0][1:]))   # warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    # the pipeline's overlap: batch i+1 is launched before batch i is
-    # fetched on a background thread
     per_batch = []
     t_start = time.time()
     with ThreadPoolExecutor(1) as pool:
@@ -412,8 +499,45 @@ def scale_phase(n_subjects: int, n_timed: int):
             fut.result()
         last = eng.fetch(pending)
     wall = time.time() - t_start
-    launches = dict(_build.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    return (dict(_build.LAUNCHES), per_batch, wall, last,
+            torch.cuda.max_memory_allocated())
+
+
+def crosscheck(eng, index, batch):
+    """256 reads on the card vs the same engine on the CPU: (equal, hits)."""
+    from ghostm_tpu_torch.engine import SearchEngine
+
+    _, dna, lens = batch
+    gpu = eng.fetch(eng.search_refine_async_dna(dna[:256], lens[:256]))
+    cpu_eng = SearchEngine(eng.cfg.replace(query_batch=256), index,
+                           device="cpu", key_table=eng.key_table)
+    cpu = cpu_eng.fetch(cpu_eng.search_refine_async_dna(dna[:256],
+                                                        lens[:256]))
+    same = gpu.shape == cpu.shape and bool((gpu == cpu).all())
+    return same, int(((cpu[1] >> 15) > 0).sum())
+
+
+def scale_phase(n_subjects: int, n_timed: int):
+    from ghostm_tpu_torch.config import Config
+    from ghostm_tpu_torch.engine import SearchEngine
+    from ghostm_tpu_torch.pipeline import run_search
+
+    R = 8192
+    cfg = Config(query_batch=R, seed_len=5, hits_per_seed=128)
+    t0 = time.time()
+    index = build_config2_index(n_subjects, cfg)
+    t_index = time.time() - t0
+    t0 = time.time()
+    eng = SearchEngine(cfg, index, device="cuda")
+    torch.cuda.synchronize()
+    t_engine = time.time() - t0
+    batches = make_batches(index, 1 + n_timed, R)
+    emit(phase="scale_setup", subjects=n_subjects,
+         residues=int(index.total_residues), index_s=t_index,
+         engine_init_s=t_engine, table_bytes=int(eng.key_table.nbytes),
+         table_width=eng.table_width, expand=int(index.expand_width))
+
+    launches, per_batch, wall, last, peak = timed_run(eng, batches)
     emit(phase="scale", reads=R * n_timed, wall_s=wall,
          reads_per_s=R * n_timed / wall, batch_ms=per_batch,
          max_memory_allocated=peak, launches=launches,
@@ -435,19 +559,52 @@ def scale_phase(n_subjects: int, n_timed: int):
     emit(phase="scale_pipeline", reads=R * n_timed, wall_s=wall_p,
          reads_per_s=R * n_timed / wall_p, rows=rows)
 
-    # cross-check: 256 reads on the card vs the same engine on the CPU
-    names, dna, lens = batches[1]
-    gpu = eng.fetch(eng.search_refine_async_dna(dna[:256], lens[:256]))
-    cpu_eng = SearchEngine(cfg.replace(query_batch=256), index, device="cpu",
-                           key_table=eng.key_table)
-    cpu = cpu_eng.fetch(cpu_eng.search_refine_async_dna(dna[:256],
-                                                        lens[:256]))
-    same = gpu.shape == cpu.shape and bool((gpu == cpu).all())
-    emit(phase="scale_crosscheck", reads=256, equal=same,
-         hits=int(((cpu[1] >> 15) > 0).sum()))
+    same, hits = crosscheck(eng, index, batches[1])
+    emit(phase="scale_crosscheck", reads=256, equal=same, hits=hits)
     if not same:
         raise SystemExit("scale: CUDA and CPU engines disagree")
-    return launches, per_batch, wall, peak
+    return launches, index, eng.key_table, batches
+
+
+def score_fed_leg(tag: str, cfg, index, batches, kernel: str,
+                  key_table=None):
+    """One BLOSUM50 leg on the config-2-true index: engine init, the timed
+    run (the launch counters set to 0 just before it), a stage breakdown
+    and the 256-read CPU cross-check. `kernel` must launch, B3 must not."""
+    from ghostm_tpu_torch.engine import SearchEngine
+
+    t0 = time.time()
+    eng = SearchEngine(cfg, index, device="cuda", key_table=key_table)
+    torch.cuda.synchronize()
+    t_engine = time.time() - t0
+    launches, per_batch, wall, last, peak = timed_run(eng, batches)
+    n = cfg.query_batch * (len(batches) - 1)
+    same, xhits = crosscheck(eng, index, batches[1])
+    emit(phase=tag, route=eng.route, chunk=eng.chunk,
+         query_frame_len=cfg.query_frame_len,
+         read_len=int(batches[1][1].shape[1]), engine_init_s=t_engine,
+         reads=n, wall_s=wall, reads_per_s=n / wall, batch_ms=per_batch,
+         max_memory_allocated=peak, launches=launches,
+         kernel_launches=per_kernel(launches),
+         hits=int(((last[1] >> 15) > 0).sum()), crosscheck_reads=256,
+         crosscheck_equal=same, crosscheck_hits=xhits)
+    if launches[kernel] == 0:
+        raise SystemExit(f"{tag}: kernel {kernel} was never launched")
+    if launches["sw_fused"]:
+        raise SystemExit(f"{tag}: the fused kernel B3 was launched")
+    if not (last[1] >> 15).max() > 0:
+        raise SystemExit(f"{tag}: no hits in the last batch")
+    if not same:
+        raise SystemExit(f"{tag}: CUDA and CPU engines disagree")
+    emit(phase=f"{tag}_stages", **stage_breakdown(eng, *batches[1][1:]))
+    return launches
+
+
+def free_cuda() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -472,24 +629,48 @@ def main() -> int:
              for n, log in logs.items()}
     emit(phase="build", seconds=time.time() - t0, ptxas=ptxas)
     entries = kernel_phase(dev)
-    golden = golden_phase()
+    runs = dict(zip(("golden", "golden_b50"), golden_phases()))
     if args.subjects < N_SUBJECTS:
         emit(phase="reduced", subjects=args.subjects, of=N_SUBJECTS,
              why="command-line cut of the subject count")
-    scale, per_batch, wall, peak = scale_phase(args.subjects, TIMED_BATCHES)
+    runs["scale"], index, key_table, batches = scale_phase(
+        args.subjects, TIMED_BATCHES)
+    free_cuda()
+    from ghostm_tpu_torch.config import Config
+
+    cfg = Config(query_batch=8192, seed_len=5, hits_per_seed=128, **B50)
+    # same Lq and band as the BLOSUM62 leg: its key table and reads
+    runs["scale_b50"] = score_fed_leg(
+        "scale_b50", cfg, index, batches[:1 + TIMED_B50], "sw_scored",
+        key_table=key_table)
+    del key_table, batches
+    free_cuda()
+    # 250 bp reads: 84-residue frames, padded to 88 (a multiple of 8);
+    # the direct table packs Lq, so this leg builds its own
+    cfg = cfg.replace(query_frame_len=88)
+    runs["scale_b50_250bp"] = score_fed_leg(
+        "scale_b50_250bp", cfg, index,
+        make_batches(index, 1 + TIMED_B50, 8192, read_len=250), "sw_wave")
+    free_cuda()
     path_of = {"B1 sort_rows": ("scale", "sort_rows"),
                "B2 sort_vote_rank_rows": ("golden", "sort_vote_rank_rows"),
                "B2 merge_vote_rank_rows": ("scale", "merge_vote_rank_rows"),
                "B3 sw_fused": ("scale", "sw_fused"),
-               "B4 lex_rank_rows": ("scale", "lex_rank_rows")}
+               "B4 lex_rank_rows": ("scale", "lex_rank_rows"),
+               "B5 sw_scored": ("scale_b50", "sw_scored"),
+               "B6 sw_wave": ("scale_b50_250bp", "sw_wave")}
     keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "launches_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     out = []
     for e in entries:
+        if e["name"] not in path_of:
+            continue   # B5's int32 line: timed, not on a main path here
         path, counter = path_of[e["name"]]
-        e["launches"] = (scale if path == "scale" else golden)[counter]
+        e["launches"] = runs[path][counter]
         e["launches_path"] = path
+        if e["launches"] == 0:
+            raise SystemExit(f"{e['name']}: no launch on its path {path}")
         out.append({k: e[k] for k in keys})
     emit(phase="done", seconds=time.time() - t_all)
     print(card)

@@ -4,9 +4,11 @@
 package reads the other's). `aln` runs on CUDA unless `--device cpu` is
 given, and fails without a GPU. `--pallas`/`--no-pallas` are accepted and
 ignored (a CUDA run always launches the kernels, a CPU run their plain
-versions), so the JAX package's command lines carry over. The mesh and
-multi-process flags, `--check`, `--debug-nans`, `--profile`, `--cpu` and
-`--chain-gamma > 0` are not ported yet and are rejected.
+versions), so the JAX package's command lines carry over. Every
+`--matrix`, gap cost and `--band` of the JAX package runs (a CUDA run takes
+bands up to 128). The mesh and multi-process flags, `--check`,
+`--debug-nans`, `--profile`, `--cpu` and `--chain-gamma > 0` are not ported
+yet and are rejected.
 """
 
 from __future__ import annotations
@@ -150,8 +152,9 @@ def main(argv=None) -> int:
     pa.add_argument("--max-hits", type=int, default=None)
     pa.add_argument("-e", "--evalue", type=float, default=None)
     pa.add_argument("--matrix", type=str, default=None,
-                    help="substitution matrix (BLOSUM62 only so far: the "
-                         "others need the score-fed kernels)")
+                    help="substitution matrix (BLOSUM45/50/62/80/90, "
+                         "PAM30/70/250); BLOSUM62 runs the fused SW kernel, "
+                         "the others the score-fed ones")
     pa.add_argument("--gap-open", type=int, default=None)
     pa.add_argument("--gap-extend", type=int, default=None)
     pa.add_argument("--batch", type=int, default=None)

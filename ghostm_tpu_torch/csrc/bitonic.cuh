@@ -8,6 +8,18 @@
 
 #define GHOSTM_PAD 0x7FFFFFFF  // row padding: sorts after every key
 #define GHOSTM_BIG (1 << 30)   // first invalid vote key
+#define GHOSTM_MAX_ROW_SMEM (64 << 10)  // a row of up to 16384 int32 keys
+
+// A block's row above the 48 KB dynamic shared-memory default needs the
+// kernel's opt-in (Hopper allows 227 KB); rows are capped at 64 KB.
+template <typename K>
+inline bool row_smem_ok(K kernel, int bytes) {
+  if (bytes > GHOSTM_MAX_ROW_SMEM) return false;
+  if (bytes <= (48 << 10)) return true;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes) == cudaSuccess;
+}
 
 // Bitonic stages k = first .. log2(L) over s[0, L), L a power of two. Stage k
 // merges runs of 2^k; a run is ascending iff bit k of its index is 0, so the

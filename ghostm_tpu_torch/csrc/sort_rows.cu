@@ -8,7 +8,8 @@
 // once (8 bytes per key); the bitonic passes run in shared memory, where
 // 50 passes over a 4096-key row move ~1.6 MB of shared traffic per row.
 // Design: one thread block per row, the row padded to a power of two L with
-// PAD and held in shared memory (16 KB at L = 4096), the network started at
+// PAD and held in shared memory (16 KB at L = 4096; above 48 KB the launch
+// opts in, up to 64 KB at L = 16384), the network started at
 // stage `first` to skip the presorted runs. Simple first version: one
 // compare-exchange per thread per pass with __syncthreads() between passes
 // (register-resident passes for small strides are later work).
@@ -28,11 +29,12 @@ __global__ void sort_rows_kernel(const int32_t* __restrict__ x,
 }
 
 // x, out: (Q, M) int32, contiguous; L = pow2 >= max(M, 128) with
-// L * 4 <= 48 KB; first = log2(presorted run) + 1.
+// L * 4 <= 64 KB; first = log2(presorted run) + 1.
 extern "C" int ghostm_sort_rows(const int32_t* x, int32_t* out, int Q, int M,
                                 int L, int first, cudaStream_t stream) {
   const int threads = L / 2 < 1024 ? L / 2 : 1024;
-  sort_rows_kernel<<<Q, threads, L * sizeof(int32_t), stream>>>(x, out, M, L,
-                                                                 first);
+  const int shm = L * (int)sizeof(int32_t);
+  if (!row_smem_ok(sort_rows_kernel, shm)) return (int)cudaErrorInvalidValue;
+  sort_rows_kernel<<<Q, threads, shm, stream>>>(x, out, M, L, first);
   return (int)cudaGetLastError();
 }

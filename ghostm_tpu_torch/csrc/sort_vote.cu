@@ -13,16 +13,18 @@
 // Bound on the H100: device-memory bytes — the key rows are read once
 // (128 MB at config-2's merge entry), the outputs are 64 bytes a row.
 // Design: one thread block per row, the row in shared memory (32 KB at
-// L = 8192). The vote needs no scan: a run's length is the distance from
-// its first position to upper_bound(key) over the sorted row, one binary
-// search per run start. Each thread keeps the packed
-// (votes << log2(L)+1 | L-1-i) words of its elements in registers; ncand
+// L = 8192; 64 KB at L = 16384, the merge row of 88-residue frames, above
+// the 48 KB default, so the launch opts in). The vote needs no scan: a
+// run's length is the distance from its first position to upper_bound(key)
+// over the sorted row, one binary search per run start. Each thread keeps
+// the packed (votes << log2(L)+1 | L-1-i) words of its elements in
+// registers; ncand
 // block-wide max reductions pick the candidates (the packing needs
 // 2 * bit_length(L) <= 31, checked by the wrapper).
 #include "bitonic.cuh"
 
-#define MAX_EPT 8  // keys per thread: L <= 8192 with 1024 threads
-
+// EPT = keys per thread: 8 for L <= 8192, 16 for L = 16384 (1024 threads)
+template <int EPT>
 __global__ void sort_vote_kernel(const int32_t* __restrict__ a,
                                  const int32_t* __restrict__ b, int M, int Mb,
                                  int L, int first, int ncand, int min_votes,
@@ -47,9 +49,9 @@ __global__ void sort_vote_kernel(const int32_t* __restrict__ a,
 
   const int shift = 32 - __clz(L);  // bit_length(L)
   const int ept = L / blockDim.x;
-  int32_t pk[MAX_EPT];
+  int32_t pk[EPT];
 #pragma unroll
-  for (int e = 0; e < MAX_EPT; ++e) {
+  for (int e = 0; e < EPT; ++e) {
     pk[e] = 0;
     if (e < ept) {
       const int i = e * blockDim.x + threadIdx.x;
@@ -74,7 +76,7 @@ __global__ void sort_vote_kernel(const int32_t* __restrict__ a,
   for (int c = 0; c < ncand; ++c) {
     int32_t m = 0;
 #pragma unroll
-    for (int e = 0; e < MAX_EPT; ++e) m = max(m, pk[e]);
+    for (int e = 0; e < EPT; ++e) m = max(m, pk[e]);
     for (int off = 16; off > 0; off >>= 1)
       m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
     if (lane == 0) red[warp] = m;
@@ -83,7 +85,7 @@ __global__ void sort_vote_kernel(const int32_t* __restrict__ a,
     for (int w = 0; w < nwarps; ++w) m = max(m, red[w]);
     __syncthreads();  // red is rewritten next round
 #pragma unroll
-    for (int e = 0; e < MAX_EPT; ++e)
+    for (int e = 0; e < EPT; ++e)
       if (pk[e] == m) pk[e] = 0;
     if (threadIdx.x == 0) {
       const int32_t tv = m >> shift;
@@ -96,14 +98,25 @@ __global__ void sort_vote_kernel(const int32_t* __restrict__ a,
 
 // Monolithic entry: a (Q, M), b = nullptr, Mb = 0, first = log2(run) + 1.
 // Merge entry: a (Q, La) with M = La, b (Q, Mb), L = 2 La, first = log2(L).
-// keys, votes: (Q, ncand) int32. L = pow2 >= 128, L <= 8192.
+// keys, votes: (Q, ncand) int32. L = pow2 >= 128, L <= 16384.
 extern "C" int ghostm_sort_vote_rows(const int32_t* a, const int32_t* b, int Q,
                                      int M, int Mb, int L, int first,
                                      int ncand, int min_votes, int32_t* keys,
                                      int32_t* votes, cudaStream_t stream) {
   const int threads = L / 2 < 1024 ? L / 2 : 1024;
-  if (L / threads > MAX_EPT) return (int)cudaErrorInvalidValue;
-  sort_vote_kernel<<<Q, threads, L * sizeof(int32_t), stream>>>(
-      a, b, M, Mb, L, first, ncand, min_votes, keys, votes);
+  const int shm = L * (int)sizeof(int32_t);
+  if (L / threads <= 8) {
+    if (!row_smem_ok(sort_vote_kernel<8>, shm))
+      return (int)cudaErrorInvalidValue;
+    sort_vote_kernel<8><<<Q, threads, shm, stream>>>(
+        a, b, M, Mb, L, first, ncand, min_votes, keys, votes);
+  } else if (L / threads <= 16) {
+    if (!row_smem_ok(sort_vote_kernel<16>, shm))
+      return (int)cudaErrorInvalidValue;
+    sort_vote_kernel<16><<<Q, threads, shm, stream>>>(
+        a, b, M, Mb, L, first, ncand, min_votes, keys, votes);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -12,21 +12,15 @@
 // recurrences and the best-cell update), not bytes (112 code bytes per
 // 1280-cell alignment). Design: one warp per alignment, lane l owning the
 // D = ceil(B / 32) diagonals b = l * D + d (B = 32: one diagonal a lane).
-// Rows advance in order, as sw_xla._row_step:
-//   F from diagonal b + 1 of the previous row (__shfl_down_sync),
-//   E by an exact prefix max over Ht[b'] + b' * ge (__shfl_up_sync scan),
-//   the per-diagonal best with the first row on a strict '>'.
+// Rows advance in order, as sw_xla._row_step (sw_row_step in
+// sw_common.cuh, shared with the score-fed row kernel B5).
 // The 32 x 32 score table sits in shared memory as int8 with -128 for a
 // masked entry (a LOW matrix entry, or a window code >= code_limit); the
 // subject-span mask [rel_lo, rel_hi) is tested per cell. The TPU kernel's
 // nibble-packed profile words existed only because the TPU has no gather.
 // Hopper's DPX instructions (__viaddmax_s32 ...) fit this recurrence: later.
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "sw_common.cuh"
 
-#define NEG (-(1 << 30))
-#define MASKED_I8 (-128)
-#define FULL 0xffffffffu
 #define WARPS 4
 
 template <int D>
@@ -71,72 +65,17 @@ __global__ void sw_fused_kernel(const int8_t* __restrict__ q,
         if (t != MASKED_I8 && j >= lo && j < hi) s[d] = t;
       }
     }
-    // diagonal b + 1 of the previous row: own next diagonal, or lane + 1's
-    const int Hup = __shfl_down_sync(FULL, H[0], 1);
-    const int Fup = __shfl_down_sync(FULL, F[0], 1);
-    int Fn[D], Ht[D], loc[D];
-    int run = NEG;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const int b = lane * D + d;
-      int h1 = d + 1 < D ? H[d + 1] : Hup;
-      int f1 = d + 1 < D ? F[d + 1] : Fup;
-      if (b + 1 >= B) {
-        h1 = NEG;
-        f1 = NEG;
-      }
-      Fn[d] = max(h1 - go1, f1 - ge);
-      Ht[d] = max(max(H[d] + s[d], Fn[d]), 0);
-      run = max(run, b < B ? Ht[d] + b * ge : NEG);
-      loc[d] = run;  // inclusive prefix max within the lane
-    }
-    // inclusive warp scan of the lane maxima, then exclusive for this lane
-    int incl = run;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int o = __shfl_up_sync(FULL, incl, off);
-      if (lane >= off) incl = max(incl, o);
-    }
-    int excl = __shfl_up_sync(FULL, incl, 1);
-    if (lane == 0) excl = NEG;
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const int b = lane * D + d;
-      const int P = d == 0 ? excl : max(excl, loc[d - 1]);
-      const int E = P - (go1 + (b - 1) * ge);
-      const int Hn = max(Ht[d], E);
-      if (b < B && Hn > bH[d]) {
-        bH[d] = Hn;
-        bI[d] = i;
-      }
-      H[d] = Hn;
-      F[d] = Fn[d];
-    }
+    sw_row_step<D>(H, F, bH, bI, s, i, lane, B, go1, ge);
   }
-  // _finalize: max score, then min i, then min b
-  int best = 0;
+  int bb[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d)
-    if (lane * D + d < B) best = max(best, bH[d]);
-  for (int off = 16; off > 0; off >>= 1)
-    best = max(best, __shfl_xor_sync(FULL, best, off));
-  int ci = 1 << 30;
-#pragma unroll
-  for (int d = 0; d < D; ++d)
-    if (lane * D + d < B && bH[d] == best) ci = min(ci, bI[d]);
-  for (int off = 16; off > 0; off >>= 1)
-    ci = min(ci, __shfl_xor_sync(FULL, ci, off));
-  int cb = 1 << 30;
-#pragma unroll
-  for (int d = 0; d < D; ++d)
-    if (lane * D + d < B && bH[d] == best && bI[d] == ci)
-      cb = min(cb, lane * D + d);
-  for (int off = 16; off > 0; off >>= 1)
-    cb = min(cb, __shfl_xor_sync(FULL, cb, off));
+  for (int d = 0; d < D; ++d) bb[d] = lane * D + d;
+  int best, ci, cb;
+  sw_finalize<D>(bH, bI, bb, B, 32, best, ci, cb);
   if (lane == 0) {
     score[n] = best;
-    iend[n] = best > 0 ? ci : -1;
-    bend[n] = best > 0 ? cb : -1;
+    iend[n] = ci;
+    bend[n] = cb;
   }
 }
 

@@ -6,7 +6,10 @@ One batch of raw DNA reads runs, on the engine's device:
   2. PROPOSE: k-mer keys -> one direct-table row gather per k-mer -> per
      query frame a sort, run-length vote and top-ncand (kernels B1, B2);
   3. SELECT: the identity with one shard;
-  4. ALIGN: window fetch + banded SW with in-kernel scores (kernel B3);
+  4. ALIGN: window fetch + banded SW (`score_fed_route`): with in-kernel
+     scores (kernel B3) for matrices in the fused kernel's nibble range
+     where `fused_ok` holds; else on score tiles built in plain torch, in
+     chunks, by rows (kernel B5) or as a wavefront (kernel B6);
   5. RANK: per read the top max_hits by (-score, gsid, frame, qend, s_end)
      with the original position as the final tie-break (kernel B4);
   6. REFINE: moves DP + traceback for the ranked hits (plain torch);
@@ -17,9 +20,8 @@ package's engine.
 
 Not ported yet (NotImplementedError at init): indexes that do not fit the
 direct seed-table layout (aligned/CSR modes), more than one shard,
-matrices outside the fused kernel's nibble range (the score-fed kernels
-B5/B6), frame lengths or bands where fused_ok is false, smooth_bins and
-chain_gamma > 0.
+smooth_bins and chain_gamma > 0. A CUDA engine also refuses bands above
+128, the widest its SW kernels take.
 
 Pitfalls of the translation from JAX, handled below:
   * gathers: JAX clamps an out-of-range gather index silently; torch
@@ -45,7 +47,9 @@ import torch
 from ghostm_tpu_torch.config import Config
 from ghostm_tpu_torch.index.diskio import StackedIndex
 from ghostm_tpu_torch.kernels import candidates as cand_mod
-from ghostm_tpu_torch.kernels import seed_lookup, sort, sw_fused, sw_xla
+from ghostm_tpu_torch.kernels import (
+    seed_lookup, sort, sw_fused, sw_scored, sw_wave, sw_xla,
+)
 from ghostm_tpu_torch.ops.encode import SENTINEL
 from ghostm_tpu_torch.ops.scoring import LOW, padded_matrix
 from ghostm_tpu_torch.ops.translate import six_frame_translate_torch
@@ -241,6 +245,33 @@ def fetch_windows(buf: torch.Tensor, g0: torch.Tensor, lead: int,
     return buf.unfold(0, wlen, 1)[gl]
 
 
+def score_fed_route(Lq: int, band: int) -> str:
+    """"wave" (kernel B6) or "rows" (kernel B5) for an alignment the fused
+    kernel does not take: the JAX engine's use_wave predicate
+    (engine.py:709-714), word for word."""
+    use_wave = (
+        Lq >= 64 and band >= 16 and band % 2 == 0
+        # conservative bound on sw_wave's internal packing check
+        and 15 * Lq < (1 << (31 - (Lq + 2 * band).bit_length()))
+    )
+    return "wave" if use_wave else "rows"
+
+
+def score_fed_chunk(qc, w, g0c, loc, hic, matrix, *, band: int,
+                    gap_open: int, gap_extend: int, route: str):
+    """One chunk of the score-fed align path: the (n, Lq, band) score tile
+    in plain torch (the XLA side of the JAX engine), then B5 or B6."""
+    if band % 32 == 0:
+        sc = sw_xla.banded_scores_i8(qc, w, matrix, band, g0c, loc, hic)
+    else:
+        sc = sw_xla.banded_scores(qc, w, matrix, band)
+        sc = torch.where(sw_xla.in_span(g0c, loc, hic, qc.shape[1], band),
+                         sc, torch.full_like(sc, LOW))
+    if route == "wave":
+        return sw_wave.sw_banded_wave(sc, gap_open, gap_extend)
+    return sw_scored.sw_banded_scored(sc, gap_open, gap_extend)
+
+
 def align_shard(
     qflat: torch.Tensor,       # (Qf, Lq) int8
     buffer: torch.Tensor,      # lead-padded shard buffer, int8
@@ -256,12 +287,19 @@ def align_shard(
     lead: int,
     code_limit: int,
     srow_identity: int,
+    route: str = "fused",
+    chunk: int = 8192,
 ):
     """Returns (score, qend, bend, s_end, g0, srow, owned), each (Qf, C);
     score is 0 for candidates this shard does not own.
 
     srow_identity = S: the caller guarantees subject_ids[:S] == arange(S)
-    (every one-shard index), so the gsid -> row map is the identity."""
+    (every one-shard index), so the gsid -> row map is the identity.
+
+    route (engine.py:698-759 of the JAX package): "fused" runs B3 on the
+    codes in one call; "rows" (B5) and "wave" (B6) run on score tiles built
+    `chunk` alignments at a time — int8 masked tiles when band % 32 == 0,
+    else int32 tiles with LOW outside the subject span."""
     Qf, Lq = qflat.shape
     C = sel_gsid.shape[1]
     S = starts.shape[0]
@@ -282,11 +320,21 @@ def align_shard(
     qrep = qflat.to(torch.int8).repeat_interleave(C, dim=0)
     g0f = g0.reshape(N)
     w = fetch_windows(buffer, g0f, lead, Lq + band)
-    s, ie, be = sw_fused.sw_fused(
-        qrep, w, matrix, (lo.reshape(N) - g0f).contiguous(),
-        (hi.reshape(N) - g0f).contiguous(), gap_open, gap_extend, band,
-        code_limit=code_limit,
-    )
+    if route == "fused":
+        s, ie, be = sw_fused.sw_fused(
+            qrep, w, matrix, (lo.reshape(N) - g0f).contiguous(),
+            (hi.reshape(N) - g0f).contiguous(), gap_open, gap_extend, band,
+            code_limit=code_limit,
+        )
+    else:
+        lof, hif = lo.reshape(N), hi.reshape(N)
+        outs = [score_fed_chunk(qrep[c:c + chunk], w[c:c + chunk],
+                                g0f[c:c + chunk], lof[c:c + chunk],
+                                hif[c:c + chunk], matrix, band=band,
+                                gap_open=gap_open, gap_extend=gap_extend,
+                                route=route)
+                for c in range(0, N, chunk)]
+        s, ie, be = (torch.cat(x) for x in zip(*outs))
     score = s.reshape(Qf, C)
     score = torch.where(owned & (score > 0), score, zero)
     hit = score > 0
@@ -348,11 +396,8 @@ def refine_stats_packed(
     flat_read = torch.arange(R, device=dev).repeat_interleave(K)
     qc = qcodes3[flat_read, frame].to(torch.int32)
     sc = sw_xla.banded_scores(qc, w, matrix, band)
-    iota_ib = (torch.arange(Lq, dtype=torch.int32, device=dev)[:, None]
-               + torch.arange(band, dtype=torch.int32, device=dev)[None, :])
-    j = g0[:, None, None] + iota_ib[None]
-    inb = (j >= lo[:, None, None]) & (j < hi[:, None, None])
-    sc = torch.where(inb, sc, torch.full_like(sc, LOW))
+    sc = torch.where(sw_xla.in_span(g0, lo, hi, Lq, band), sc,
+                     torch.full_like(sc, LOW))
     s2, ie2, be2, moves = sw_xla.sw_banded_moves(sc, gap_open, gap_extend)
     stats = sw_xla.traceback_stats_device(moves, ie2, be2, qc, w)
     rows = [stats[k] for k in SearchEngine.STAT_KEYS] + [s2]
@@ -390,6 +435,11 @@ class SearchEngine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device available: pass "
                                "device='cpu' (CLI: --device cpu)")
+        if self.device.type == "cuda" and cfg.band_width > sw_fused.MAX_BAND:
+            raise NotImplementedError(
+                f"band {cfg.band_width} is wider than the CUDA SW kernels "
+                f"take ({sw_fused.MAX_BAND})"
+            )
         if index.buffers.shape[0] != 1:
             raise NotImplementedError("indexes with more than one shard are "
                                       "not ported yet")
@@ -398,19 +448,19 @@ class SearchEngine:
                                       "not ported yet")
         mat = padded_matrix(cfg.matrix, hard_stop=True)
         words, self.code_limit = sw_fused.build_packed_matrix(mat)
-        if words is None:
-            raise NotImplementedError(
-                f"matrix {cfg.matrix} has scores outside the fused kernel's "
-                "nibble range [-4, 11]: the score-fed SW kernels (B5/B6) are "
-                "not ported yet"
-            )
         Lq, band = cfg.query_frame_len, cfg.band_width
-        if not sw_fused.fused_ok(Lq, band):
-            raise NotImplementedError(
-                f"frame length {Lq} / band {band} is outside the fused SW "
-                "kernel's range (fused_ok): the score-fed kernels are not "
-                "ported yet"
-            )
+        # align route: the fused kernel B3 for a matrix in its nibble range
+        # where fused_ok holds, else the score-fed B6 or B5
+        self.route = (
+            "fused" if words is not None and sw_fused.fused_ok(Lq, band)
+            else score_fed_route(Lq, band)
+        )
+        # score-fed chunk (the JAX engine's rule): a hard cap of 8192
+        # alignments and 128 MB of int32 score tile
+        n_sw = cfg.query_batch * NFRAMES * cfg.candidates_per_frame
+        mem_cap = max(128, (128 << 20) // (Lq * band * 4))
+        self.chunk = max(128, min(8192, _round_up(n_sw, 128),
+                                  mem_cap // 128 * 128))
         st = index.shards[0].store
         S = st.num_subjects
         if not S or not (np.asarray(st.subject_ids) == np.arange(S)).all():
@@ -461,6 +511,7 @@ class SearchEngine:
             sel_g, sel_b, band=cfg.band_width, gap_open=cfg.gap_open,
             gap_extend=cfg.gap_extend, lead=self.lead,
             code_limit=self.code_limit, srow_identity=self.srow_identity,
+            route=self.route, chunk=self.chunk,
         )
 
     def search_packed(self, qcodes3: torch.Tensor) -> torch.Tensor:

@@ -29,7 +29,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("sort_rows", "sort_vote", "sw_fused", "lex_rank")
+SOURCES = ("sort_rows", "sort_vote", "sw_fused", "lex_rank", "sw_scored",
+           "sw_wave")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -39,7 +40,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # not count), so a run can show that its path went through the kernels.
 LAUNCHES: Dict[str, int] = dict.fromkeys((
     "sort_rows", "sort_vote_rank_rows", "merge_vote_rank_rows", "sw_fused",
-    "lex_rank_rows",
+    "lex_rank_rows", "sw_scored", "sw_wave",
 ), 0)
 
 

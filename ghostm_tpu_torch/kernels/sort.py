@@ -29,7 +29,10 @@ from ghostm_tpu_torch.kernels import _build
 PAD = 0x7FFFFFFF
 BIG = 1 << 30          # first invalid key value (matches candidates.BIG)
 _LANES = 128           # the top-ncand output width of the JAX kernel
-MAX_SMEM_ROW = 48 << 10  # bytes of one row in static shared memory
+# bytes of one row in shared memory: above the 48 KB default the CUDA launch
+# opts in (csrc/bitonic.cuh row_smem_ok); 16384 keys cover the merge row of
+# 88-residue frames (84 k-mer positions x 128-wide table rows)
+MAX_SMEM_ROW = 64 << 10
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,11 +59,12 @@ def _check_cuda(*xs: torch.Tensor) -> None:
             raise ValueError("kernel inputs must share one device")
 
 
-def _check_row_smem(L: int, arrays: int = 1) -> None:
-    if L * 4 * arrays > MAX_SMEM_ROW:
+def _check_row_smem(L: int, arrays: int = 1,
+                    limit: int = MAX_SMEM_ROW) -> None:
+    if L * 4 * arrays > limit:
         raise NotImplementedError(
-            f"row length {L} x {arrays} int32 arrays exceeds 48 KB of shared "
-            "memory per block: long-read rows are not ported yet"
+            f"row length {L} x {arrays} int32 arrays exceeds {limit >> 10} "
+            "KB of shared memory per block: long-read rows are not ported yet"
         )
 
 
@@ -288,7 +292,7 @@ def lex_rank_rows(ops: torch.Tensor, num_keys: int, topk: int) -> torch.Tensor:
     topk = min(topk, M)
     L = 1 << max(M - 1, 1).bit_length()   # 48 -> 64: no 128-lane floor here
     _check_cuda(ops)
-    _check_row_smem(L, nops + 1)
+    _check_row_smem(L, nops + 1, limit=48 << 10)   # B4 does not opt in
     out = torch.empty((nops, Q, topk), dtype=torch.int32, device=ops.device)
     if Q == 0:
         return out

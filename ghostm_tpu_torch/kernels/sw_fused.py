@@ -7,8 +7,9 @@ TPU has no vector gather; on the GPU the kernel keeps the 32 x 32 int8 score
 table in shared memory. The routing predicates stay the JAX package's:
 `fused_ok` (the engine's chunk sizing and path choice) and
 `build_packed_matrix` returning None, which is how a matrix outside the
-nibble range [-4, 11] (BLOSUM50, PAM30) is detected — those need the
-score-fed kernels B5/B6, not ported yet.
+nibble range [-4, 11] (BLOSUM50, PAM30) is detected — those take the
+score-fed kernels B5/B6 (kernels/sw_scored.py, kernels/sw_wave.py).
+MAX_BAND also bounds B5 and B6; a CUDA engine refuses wider bands.
 
 Contract (equal to sw_xla.sw_banded(banded_scores_i8(...))): per alignment
 (score, i_end, b_end) int32 — max score, then min i, then min b; (-1, -1)

@@ -41,20 +41,24 @@ def banded_scores(qcodes: torch.Tensor, windows: torch.Tensor,
     return matrix.to(torch.int32).reshape(-1)[flat].reshape(t.shape)
 
 
+def in_span(g0, lo, hi, Lq: int, band: int) -> torch.Tensor:
+    """(N, Lq, band) bool: cell (i, b) lies in the subject span, i.e.
+    g0 + i + b is in [lo, hi)."""
+    dev = g0.device
+    iota_ib = (torch.arange(Lq, dtype=torch.int32, device=dev)[:, None]
+               + torch.arange(band, dtype=torch.int32, device=dev)[None, :])
+    j = g0.to(torch.int32)[:, None, None] + iota_ib[None]
+    return (j >= lo.to(torch.int32)[:, None, None]) & (
+        j < hi.to(torch.int32)[:, None, None])
+
+
 def banded_scores_i8(qcodes, windows, matrix, band: int, g0, lo, hi
                      ) -> torch.Tensor:
     """banded_scores + subject-span masking, packed to int8 tiles: cells
     with g0 + i + b outside [lo, hi) and cells whose matrix entry is LOW
     become MASKED_I8; everything else is the raw matrix value."""
-    Lq = qcodes.shape[1]
     sc = banded_scores(qcodes, windows, matrix, band)
-    dev = sc.device
-    iota_ib = (torch.arange(Lq, dtype=torch.int32, device=dev)[:, None]
-               + torch.arange(band, dtype=torch.int32, device=dev)[None, :])
-    j = g0.to(torch.int32)[:, None, None] + iota_ib[None]
-    inb = (j >= lo.to(torch.int32)[:, None, None]) & (
-        j < hi.to(torch.int32)[:, None, None])
-    keep = inb & (sc > -100)
+    keep = in_span(g0, lo, hi, qcodes.shape[1], band) & (sc > -100)
     return torch.where(keep, sc.clamp(-100, 127),
                        torch.full_like(sc, MASKED_I8)).to(torch.int8)
 

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from ghostm_tpu_torch.kernels import _build, sw_fused
+from ghostm_tpu_torch.kernels import _build, sw_fused, sw_scored, sw_wave
+from ghostm_tpu_torch.kernels import sw_xla
 from ghostm_tpu_torch.kernels import sort as S
 from ghostm_tpu_torch.ops.scoring import padded_matrix
 
@@ -46,7 +47,7 @@ def _launched(name, fn):
 
 @pytest.mark.parametrize("q,m,run", [
     (5, 7, 0), (128, 1, 0), (33, 300, 0), (64, 4096, 128), (64, 512, 128),
-    (8, 8192, 0), (16, 2048, 2048),
+    (8, 8192, 0), (16, 2048, 2048), (6, 16384, 128),
 ])
 def test_sort_rows_kernel(dev, q, m, run):
     gen = torch.Generator().manual_seed(q * m)
@@ -74,6 +75,7 @@ def test_sort_vote_kernel(dev, q, m, run, minv, hi):
 @pytest.mark.parametrize("q,la,mb,minv,hi", [
     (256, 4096, 512, 1, 1 << 12), (64, 128, 1, 1, 50),
     (32, 1024, 1024, 2, 300), (16, 2048, 7, 1, 1 << 20),
+    (24, 8192, 2560, 1, 1 << 14),   # 88-residue frames: a 64 KB row
 ])
 def test_merge_vote_kernel(dev, q, la, mb, minv, hi):
     gen = torch.Generator().manual_seed(la + mb)
@@ -122,6 +124,60 @@ def test_sw_fused_kernel(dev, n, lq, band):
     assert int(got[0].max()) > 0
 
 
+def _score_tile(gen, n, lq, band, dtype, dev):
+    """(n, lq, band) BLOSUM50 tile of related and unrelated pairs: int8
+    masked (banded_scores_i8) or int32 with LOW outside the span."""
+    mat = torch.from_numpy(padded_matrix("BLOSUM50").astype(np.int32))
+    q = torch.randint(0, 26, (n, lq), generator=gen, dtype=torch.int8)
+    w = torch.randint(0, 26, (n, lq + band), generator=gen, dtype=torch.int8)
+    w[::2, 2:2 + lq] = q[::2]
+    g0 = torch.zeros(n, dtype=torch.int32)
+    lo = torch.randint(-4, 8, (n,), generator=gen, dtype=torch.int32)
+    hi = torch.randint(lq // 2, lq + band + 4, (n,), generator=gen,
+                       dtype=torch.int32)
+    if dtype == "int8":
+        sc = sw_xla.banded_scores_i8(q, w, mat, band, g0, lo, hi)
+    else:
+        sc = sw_xla.banded_scores(q, w, mat, band)
+        sc = torch.where(sw_xla.in_span(g0, lo, hi, lq, band), sc,
+                         torch.full_like(sc, -(1 << 20)))
+    return sc.contiguous().to(dev)
+
+
+@pytest.mark.parametrize("n,lq,band,dtype", [
+    (8192, 40, 32, "int8"), (1000, 40, 24, "int32"), (513, 40, 8, "int32"),
+    (300, 60, 32, "int8"), (200, 40, 128, "int8"), (130, 40, 96, "int32"),
+    (100, 300, 48, "int32"), (77, 40, 10, "int8"), (64, 1, 64, "int8"),
+    (5, 0, 32, "int8"),
+])
+def test_sw_scored_kernel(dev, n, lq, band, dtype):
+    gen = torch.Generator().manual_seed(n + lq + band)
+    sc = _score_tile(gen, n, lq, band, dtype, dev)
+    got = _launched("sw_scored",
+                    lambda: sw_scored.sw_banded_scored(sc, 13, 2))
+    want = sw_scored.sw_banded_scored_plain(sc, 13, 2)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    assert lq < 2 or int(got[0].max()) > 0
+
+
+@pytest.mark.parametrize("n,lq,band,dtype", [
+    (8192, 88, 32, "int8"), (1000, 72, 24, "int32"), (513, 96, 16, "int32"),
+    (300, 64, 64, "int8"), (200, 128, 128, "int8"), (100, 300, 120, "int32"),
+    (96, 200, 128, "int32"), (77, 64, 18, "int8"), (65, 200, 40, "int8"),
+    (50, 65, 20, "int8"),   # rows of 20 bytes: the byte-wise staging copy
+    (33, 5, 32, "int8"), (3, 0, 32, "int8"),
+])
+def test_sw_wave_kernel(dev, n, lq, band, dtype):
+    gen = torch.Generator().manual_seed(n + lq + band)
+    sc = _score_tile(gen, n, lq, band, dtype, dev)
+    got = _launched("sw_wave", lambda: sw_wave.sw_banded_wave(sc, 13, 2))
+    want = sw_wave.sw_banded_wave_plain(sc, 13, 2)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    assert lq < 2 or int(got[0].max()) > 0
+
+
 def test_engine_cuda_equals_cpu(dev, tmp_path):
     """Golden config-1 index and reads: the packed step output on CUDA
     equals the CPU engine's."""
@@ -142,5 +198,34 @@ def test_engine_cuda_equals_cpu(dev, tmp_path):
     g = SearchEngine(cfg, idx, device="cuda")
     c = SearchEngine(cfg, idx, device="cpu", key_table=g.key_table)
     got = g.fetch(g.search_refine_async_dna(dna, lens))
+    want = c.fetch(c.search_refine_async_dna(dna, lens))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("frame,kernel", [(40, "sw_scored"), (72, "sw_wave")])
+def test_engine_cuda_equals_cpu_score_fed(dev, tmp_path, frame, kernel):
+    """BLOSUM50 on the golden config-1 index: the score-fed route's packed
+    output on CUDA equals the CPU engine's, through B5 or B6."""
+    from ghostm_tpu_torch.cli import main as cli
+    from ghostm_tpu_torch.config import Config
+    from ghostm_tpu_torch.engine import SearchEngine
+    from ghostm_tpu_torch.index.diskio import load_index
+    from ghostm_tpu_torch.io.fasta import read_batches
+
+    gold = os.path.join(os.path.dirname(__file__), "golden")
+    prefix = str(tmp_path / "idx")
+    assert cli(["db", "-i", os.path.join(gold, "config1_db.fa"),
+                "-o", prefix]) == 0
+    idx = load_index(prefix)
+    cfg = Config(query_batch=128, matrix="BLOSUM50", gap_open=13,
+                 gap_extend=2, query_frame_len=frame)
+    _, dna, lens = next(read_batches(os.path.join(gold, "config1_reads.fa"),
+                                     128, 120))
+    g = SearchEngine(cfg, idx, device="cuda")
+    c = SearchEngine(cfg, idx, device="cpu", key_table=g.key_table)
+    before = dict(_build.LAUNCHES)
+    got = g.fetch(g.search_refine_async_dna(dna, lens))
+    assert _build.LAUNCHES[kernel] > before[kernel]
+    assert _build.LAUNCHES["sw_fused"] == before["sw_fused"]
     want = c.fetch(c.search_refine_async_dna(dna, lens))
     np.testing.assert_array_equal(got, want)

@@ -1,8 +1,10 @@
 """The port's SearchEngine(device="cpu") against the JAX package's
 SearchEngine(use_pallas=False) on the same random index: the packed
 (6, R, K) output of search_refine_async_dna must be equal, with the index
-loaded through disk and through index_from_arrays. Also the device
-translation and the port's pipeline checkpoint/resume. Tolerance 0."""
+loaded through disk and through index_from_arrays, on every align route
+(fused B3, score-fed rows B5, score-fed wave B6). Also the device
+translation, the score-fed chunking, the CUDA band limit and the port's
+pipeline checkpoint/resume. Tolerance 0."""
 
 import os
 import sys
@@ -39,6 +41,15 @@ torch.set_num_threads(1)
 # M = 38 * 64: the split sort (B1 twice + B2's merge entry).
 CASES = {"monolithic": dict(hits_per_seed=16),
          "split": dict(hits_per_seed=64)}
+# BLOSUM50 is outside the fused kernel's nibble range: the score-fed path,
+# by rows on int8 tiles (band 32), as a wavefront (72-residue frames), and
+# by rows on int32 tiles with the LOW span mask (band 24).
+B50 = dict(hits_per_seed=16, matrix="BLOSUM50", gap_open=13, gap_extend=2)
+SCORE_FED = {"blosum50": B50,
+             "blosum50_wave": dict(B50, query_frame_len=72),
+             "blosum50_band24": dict(B50, band_width=24)}
+ROUTE = {"monolithic": "fused", "split": "fused", "blosum50": "rows",
+         "blosum50_wave": "wave", "blosum50_band24": "rows"}
 
 
 @pytest.fixture(scope="module")
@@ -53,20 +64,37 @@ def data(tmp_path_factory):
     return d
 
 
+@pytest.fixture(scope="module")
+def built(data):
+    """Cache of _build_case results, shared by the fixtures below."""
+    return {}
+
+
+def _build_case(data, built, name):
+    """(cfg dict, index prefix, JAX index, JAX packed output, dna, lens)."""
+    if name not in built:
+        kw = dict({**CASES, **SCORE_FED}[name], query_batch=64)
+        prefix = str(data / f"idx_{name}")
+        assert jcli(["db", "-i", str(data / "db.fa"), "-o", prefix, "-k",
+                     "3", "--config", _cfg_file(data, name, kw)]) == 0
+        jidx = jdiskio.load_index(prefix)
+        cfg = JConfig(**kw)
+        _, dna, lens = next(read_batches(str(data / "reads.fa"), 64, 120))
+        dna, lens = dna[:50], lens[:50]   # a tail batch: padded to 64 inside
+        eng = jengine.SearchEngine(cfg, jidx, use_pallas=False)
+        want = np.asarray(eng.search_refine_async_dna(dna, lens))
+        built[name] = (kw, prefix, jidx, want, dna, lens)
+    return built[name]
+
+
 @pytest.fixture(scope="module", params=list(CASES))
-def case(request, data):
-    """(cfg dict, index prefix, JAX packed output, dna, lens)."""
-    kw = dict(CASES[request.param], query_batch=64)
-    prefix = str(data / f"idx_{request.param}")
-    assert jcli(["db", "-i", str(data / "db.fa"), "-o", prefix, "-k", "3",
-                 "--config", _cfg_file(data, request.param, kw)]) == 0
-    jidx = jdiskio.load_index(prefix)
-    cfg = JConfig(**kw)
-    _, dna, lens = next(read_batches(str(data / "reads.fa"), 64, 120))
-    dna, lens = dna[:50], lens[:50]   # a tail batch: padded to 64 inside
-    eng = jengine.SearchEngine(cfg, jidx, use_pallas=False)
-    want = np.asarray(eng.search_refine_async_dna(dna, lens))
-    return kw, prefix, jidx, want, dna, lens
+def case(request, data, built):
+    return _build_case(data, built, request.param)
+
+
+@pytest.fixture(scope="module", params=list(CASES) + list(SCORE_FED))
+def any_case(request, data, built):
+    return request.param, _build_case(data, built, request.param)
 
 
 def _cfg_file(d, tag, kw):
@@ -78,15 +106,41 @@ def _cfg_file(d, tag, kw):
 
 
 @pytest.mark.parametrize("load", ["disk", "arrays"])
-def test_engine_packed_equals_jax(case, load):
-    kw, prefix, jidx, want, dna, lens = case
+def test_engine_packed_equals_jax(any_case, load):
+    name, (kw, prefix, jidx, want, dna, lens) = any_case
     idx = (tdiskio.load_index(prefix) if load == "disk"
            else tdiskio.index_from_arrays(jidx))
     eng = tengine.SearchEngine(TConfig(**kw), idx, device="cpu")
+    assert eng.route == ROUTE[name]
     got = tengine.SearchEngine.fetch(eng.search_refine_async_dna(dna, lens))
     assert got.shape == want.shape == (6, 50, 10)
     assert (got[1] >> 15).max() > 0, "no hits: the comparison is vacuous"
     np.testing.assert_array_equal(got, want)
+
+
+def test_engine_score_fed_chunking(data, built):
+    """The score-fed path's output does not depend on its chunk: 24 chunks
+    of 128 alignments against the default (one chunk of 3072)."""
+    kw, prefix, jidx, want, dna, lens = _build_case(data, built, "blosum50")
+    eng = tengine.SearchEngine(TConfig(**kw), tdiskio.index_from_arrays(jidx),
+                               device="cpu")
+    assert eng.chunk == 64 * 6 * 8
+    eng.chunk = 128
+    got = tengine.SearchEngine.fetch(eng.search_refine_async_dna(dna, lens))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(B50), dict(B50, query_frame_len=72),
+], ids=["fused", "rows", "wave"])
+def test_engine_band_limit_on_cuda(data, built, monkeypatch, kw):
+    """A CUDA engine refuses bands above 128 at init, on every route (the
+    SW kernels take up to 128); the check needs no card."""
+    _, prefix, jidx, *_ = _build_case(data, built, "monolithic")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(NotImplementedError, match="wider than"):
+        tengine.SearchEngine(TConfig(**kw, band_width=136),
+                             tdiskio.index_from_arrays(jidx))
 
 
 def test_engine_split_path_reaches_merge(case, monkeypatch):

@@ -1,6 +1,7 @@
-"""The port's CLI reproduces the committed config-1 golden byte for byte on
-the CPU (plain versions of the kernels), from an index built by either
-package; what is not ported yet fails with a clear error."""
+"""The port's CLI reproduces the committed config-1 goldens (BLOSUM62 and
+BLOSUM50) byte for byte on the CPU (plain versions of the kernels), from an
+index built by either package; what is not ported yet fails with a clear
+error."""
 
 import os
 
@@ -31,13 +32,21 @@ def test_config1_golden_cpu(tmp_path, db_pkg):
         assert f.read() == g.read(), "port's config-1 hit table differs"
 
 
-def test_blosum50_not_ported(tmp_path):
+@pytest.mark.parametrize("db_pkg", ["ghostm_tpu_torch", "ghostm_tpu"])
+def test_config1_blosum50_golden_cpu(tmp_path, db_pkg):
+    """BLOSUM50 / gap 13,2 is outside the fused kernel's nibble range: the
+    score-fed path (B5 by rows at 40-residue frames) must reproduce the
+    committed BLOSUM50 golden."""
     prefix = str(tmp_path / "idx")
-    assert tcli(["db", "-i", DB, "-o", prefix]) == 0
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tcli(["aln", "-d", prefix, "-i", READS, "-o", str(tmp_path / "h"),
-              "--device", "cpu", "--matrix", "BLOSUM50", "--gap-open", "13",
-              "--gap-extend", "2"])
+    out = str(tmp_path / "hits.tsv")
+    db = tcli if db_pkg == "ghostm_tpu_torch" else jcli
+    assert db(["db", "-i", DB, "-o", prefix]) == 0
+    assert tcli(["aln", "-d", prefix, "-i", READS, "-o", out, "--device",
+                 "cpu", "--batch", "128", "--matrix", "BLOSUM50",
+                 "--gap-open", "13", "--gap-extend", "2"]) == 0
+    with open(out) as f, open(os.path.join(GOLD,
+                                           "config1_b50_hits.tsv")) as g:
+        assert f.read() == g.read(), "port's BLOSUM50 hit table differs"
 
 
 @pytest.mark.parametrize("flags", [

@@ -1,7 +1,9 @@
 """ghostm_tpu_torch imports neither jax nor anything of ghostm_tpu: every
 module of the port imports in a subprocess whose import system refuses
-both."""
+both; and chip_smoke.py, which drives the port on the card, names neither
+in any import statement."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -38,3 +40,18 @@ def test_port_imports_without_jax_or_reference():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert int(r.stdout.strip()) >= 20   # every module was imported
+
+
+def test_chip_smoke_imports_neither_jax_nor_reference():
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    assert "ghostm_tpu_torch.engine" in names   # the walk saw the imports
+    bad = [n for n in names
+           if n.split(".")[0] in ("jax", "jaxlib", "ghostm_tpu")]
+    assert not bad, bad
