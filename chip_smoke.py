@@ -6,7 +6,8 @@
 Phases, each printing one JSON line ({"phase": ...}):
   device   the card's name and power limit (nvidia-smi);
   build    nvcc of every kernel source in csrc/, in parallel;
-  kernels  each kernel's wrapper at its main-path shape on seeded inputs,
+  kernels  each kernel's wrapper at its main-path shapes on seeded inputs
+           (B1 and B2's merge entry at the shapes of both read lengths),
            held against its plain PyTorch version on the card (integer
            outputs: equal, max_abs_err 0), with CUDA-event times of the
            kernel, the plain version, torch.sort as B1's yardstick, and
@@ -30,7 +31,11 @@ Phases, each printing one JSON line ({"phase": ...}):
            88-residue frames (B6, the wavefront; its own key table).
 The launch counters are set to 0 just before each main-path run (each
 golden aln and each scale leg's timed run) and read just after; every
-kernel of that path must have launched in its run. Then a line with the
+kernel of that path must have launched in its run. The wrappers also
+count launches by input shape (`_build.SHAPES`): each `kernels` row
+reports the launches of its own shape on its path (`launches`) beside the
+wrapper's count at all shapes (`launches_wrapper`), and a row whose shape
+was never launched there fails the run. Then a line with the
 card's name and power limit, a line {"kernels": [...]}, and last
 {"ok": true, "device": ...}. Any mismatch or exception exits non-zero; so
 does a host without CUDA.
@@ -122,6 +127,12 @@ def per_kernel(launches: dict) -> dict:
             "B5": launches["sw_scored"], "B6": launches["sw_wave"]}
 
 
+def shape_counts(shapes: dict) -> dict:
+    """_build.SHAPES as JSON: "wrapper (shape)+(shape)" -> launches."""
+    return {f"{k[0]} " + "+".join(str(tuple(x)) for x in k[1:]): v
+            for k, v in shapes.items()}
+
+
 def max_err(a, b) -> int:
     if isinstance(a, torch.Tensor):
         a, b = (a,), (b,)
@@ -145,7 +156,9 @@ def kernel_phase(dev):
     entries = []
 
     def run(name, source, replaces, kern, plain, library, nbytes, nops,
-            ops_note, reps=20, **extra):
+            ops_note, reps=20, launch=None, **extra):
+        """launch: (main path, wrapper, input shapes) of the launches that
+        the final line reports for this row; None: not on a main path."""
         out_k, out_p = kern(), plain()
         torch.cuda.synchronize()
         err = max_err(out_k, out_p)
@@ -157,7 +170,8 @@ def kernel_phase(dev):
         e = dict(name=name, route="cuda", source=source, replaces=replaces,
                  equal=equal, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                  library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                 bytes=nbytes, ops=nops, ops_counted=ops_note, **extra)
+                 bytes=nbytes, ops=nops, ops_counted=ops_note,
+                 launch=launch, **extra)
         emit(phase="kernels", **e)
         entries.append(e)
         if not equal:
@@ -168,15 +182,22 @@ def kernel_phase(dev):
         passes = sum(range(first, L.bit_length()))
         return q * (passes * (L // 2) * 2 + extra_per_elem * L)
 
-    # B1: config-2 split sort, leading half (6144, 4096), runs of 128
-    x = presorted_keys(gen, 6144, 4096, 128, 1 << 26, 0.4, dev)
-    run("B1 sort_rows", "ghostm_tpu_torch/csrc/sort_rows.cu",
-        "ghostm_tpu/kernels/sort.py:69",
-        lambda: S.sort_rows(x, presorted_run=128),
-        lambda: S.sort_rows_plain(x, presorted_run=128),
-        lambda: torch.sort(x, dim=1),
-        2 * x.numel() * 4, sort_ops(6144, 4096, 8),
-        "2 per compare-exchange, stages 8..12")
+    # B1: the split sort's two halves, runs of 128: (6144, 4096) and
+    # (6144, 512) with 100 bp reads, (2944, 8192) and (2944, 2560) with
+    # 250 bp reads (88-residue frames)
+    for leg, q, m in (("scale", 6144, 4096), ("scale", 6144, 512),
+                      ("scale_b50_250bp", 2944, 8192),
+                      ("scale_b50_250bp", 2944, 2560)):
+        x = presorted_keys(gen, q, m, 128, 1 << 26, 0.4, dev)
+        L = max(1 << (m - 1).bit_length(), 128)
+        run(f"B1 sort_rows ({q}, {m})", "ghostm_tpu_torch/csrc/sort_rows.cu",
+            "ghostm_tpu/kernels/sort.py:69",
+            lambda: S.sort_rows(x, presorted_run=128),
+            lambda: S.sort_rows_plain(x, presorted_run=128),
+            lambda: torch.sort(x, dim=1),
+            2 * x.numel() * 4, sort_ops(q, L, 8),
+            f"2 per compare-exchange, stages 8..{L.bit_length() - 1}",
+            launch=(leg, "sort_rows", (q, m)))
     # B2 monolithic: golden config-1 shape (768 frames, 38 runs of 16)
     k1 = presorted_keys(gen, 768, 608, 16, 1 << 14, 0.6, dev)
     run("B2 sort_vote_rank_rows", "ghostm_tpu_torch/csrc/sort_vote.cu",
@@ -185,18 +206,26 @@ def kernel_phase(dev):
         lambda: S.sort_vote_rank_rows_plain(k1, ncand, 1, presorted_run=16),
         None, k1.numel() * 4 + 2 * 768 * ncand * 4,
         sort_ops(768, 1024, 5, 1 + 2 * ncand),
-        "2 per compare-exchange (stages 5..10) + (1 + 2 ncand) per key")
-    # B2 merge: config-2 (6144, 4096) + (6144, 512) sorted halves
-    keys = presorted_keys(gen, 6144, 4608, 128, 1 << 22, 0.4, dev)
-    a = torch.sort(keys[:, :4096], dim=1).values.contiguous()
-    b = torch.sort(keys[:, 4096:], dim=1).values.contiguous()
-    run("B2 merge_vote_rank_rows", "ghostm_tpu_torch/csrc/sort_vote.cu",
-        "ghostm_tpu/kernels/sort.py:74",
-        lambda: S.merge_vote_rank_rows(a, b, ncand, 1),
-        lambda: S.merge_vote_rank_rows_plain(a, b, ncand, 1),
-        None, (a.numel() + b.numel()) * 4 + 2 * 6144 * ncand * 4,
-        sort_ops(6144, 8192, 13, 1 + 2 * ncand),
-        "2 per compare-exchange (stage 13) + (1 + 2 ncand) per key")
+        "2 per compare-exchange (stages 5..10) + (1 + 2 ncand) per key",
+        launch=("golden", "sort_vote_rank_rows", (768, 608)))
+    # B2 merge: the sorted halves, (6144, 4096) + (6144, 512) with 100 bp
+    # reads and (2944, 8192) + (2944, 2560) with 250 bp reads
+    for leg, q, ma, mb in (("scale", 6144, 4096, 512),
+                           ("scale_b50_250bp", 2944, 8192, 2560)):
+        keys = presorted_keys(gen, q, ma + mb, 128, 1 << 22, 0.4, dev)
+        a = torch.sort(keys[:, :ma], dim=1).values.contiguous()
+        b = torch.sort(keys[:, ma:], dim=1).values.contiguous()
+        L = 2 * ma
+        run(f"B2 merge_vote_rank_rows ({q}, {ma}) + ({q}, {mb})",
+            "ghostm_tpu_torch/csrc/merge_vote.cu",
+            "ghostm_tpu/kernels/sort.py:74",
+            lambda: S.merge_vote_rank_rows(a, b, ncand, 1),
+            lambda: S.merge_vote_rank_rows_plain(a, b, ncand, 1),
+            None, (a.numel() + b.numel()) * 4 + 2 * q * ncand * 4,
+            sort_ops(q, L, L.bit_length() - 1, 1 + 2 * ncand),
+            f"2 per compare-exchange (stage {L.bit_length() - 1}) "
+            "+ (1 + 2 ncand) per key",
+            launch=(leg, "merge_vote_rank_rows", (q, ma), (q, mb)))
     # B3: config-2 align, 49152 frames x 8 candidates, Lq 40, band 32
     N, Lq, B = 393_216, 40, 32
     mat = torch.from_numpy(padded_matrix("BLOSUM62").astype(np.int32)).to(dev)
@@ -214,7 +243,7 @@ def kernel_phase(dev):
         lambda: F.sw_fused(q, w, mat, lo, hi, 11, 1, B, 23),
         lambda: F.sw_fused_plain(q, w, mat, lo, hi, 11, 1, B, 23),
         None, N * (Lq + Lq + B + 8 + 12), 12 * N * Lq * B,
-        "12 int32 ops per DP cell")
+        "12 int32 ops per DP cell", launch=("scale", "sw_fused", (N, Lq)))
     # B4: config-2 rank, 9 operands x (8192 reads, 48 hits), 5 keys, top 10
     R, M, nops = 8192, 48, 9
     ops = torch.randint(0, 6, (nops, R, M), generator=gen, device=dev,
@@ -226,7 +255,8 @@ def kernel_phase(dev):
         lambda: S.lex_rank_rows(ops, 5, 10),
         lambda: S.lex_rank_rows_plain(ops, 5, 10),
         None, ops.numel() * 4 + nops * R * 10 * 4, R * 21 * 32 * 26,
-        "26 per compare-exchange (6 compares + 20 moves), 21 passes at L=64")
+        "26 per compare-exchange (6 compares + 20 moves), 21 passes at L=64",
+        launch=("scale", "lex_rank_rows", (nops, R, M)))
     # B5 / B6: the score-fed chunks the engine launches at config-2-true
     # with BLOSUM50 (8192 alignments a chunk), from related and unrelated
     # pairs as for B3; bound: the tile read once + 3 outputs, 12 ops a cell
@@ -268,6 +298,7 @@ def kernel_phase(dev):
         lambda: SF.sw_banded_scored_plain(sc, 13, 2),
         None, sc.numel() + 3 * N * 4, 12 * N * Lq * B,
         "12 int32 ops per DP cell", shape=[N, Lq, B], dtype="int8",
+        launch=("scale_b50", "sw_scored", (N, Lq, B)),
         fused_same_work_ms=time_ms(fused, 20, flush),
         fused_same_work_max_abs_err=same)
     N, Lq, B = 8192, 40, 24
@@ -287,7 +318,8 @@ def kernel_phase(dev):
         lambda: SW.sw_banded_wave(sc, 13, 2),
         lambda: SW.sw_banded_wave_plain(sc, 13, 2),
         None, sc.numel() + 3 * N * 4, 12 * N * Lq * B,
-        "12 int32 ops per DP cell", shape=[N, Lq, B], dtype="int8")
+        "12 int32 ops per DP cell", shape=[N, Lq, B], dtype="int8",
+        launch=("scale_b50_250bp", "sw_wave", (N, Lq, B)))
     del x, k1, keys, a, b, q, w, lo, hi, sc, ops, flush
     torch.cuda.empty_cache()
     return entries
@@ -312,12 +344,13 @@ def golden_phase(prefix: str, tag: str, flags, gold: str, need,
                 "--batch", "128", "--device", "cuda", *flags]) != 0:
             raise SystemExit(f"{tag}: aln failed")
         wall = time.time() - t0
-        launches = dict(_build.LAUNCHES)
+        launches, shapes = dict(_build.LAUNCHES), dict(_build.SHAPES)
         with open(out) as f, open(os.path.join(golds, gold)) as g:
             got, want = f.read(), g.read()
     match = got == want
     emit(phase=tag, match=match, rows=len(got.splitlines()) - 1,
-         aln_s=wall, launches=launches, kernel_launches=per_kernel(launches))
+         aln_s=wall, launches=launches, kernel_launches=per_kernel(launches),
+         shape_launches=shape_counts(shapes))
     if not match:
         raise SystemExit(f"{tag}: the CUDA hit table differs from "
                          f"tests/golden/{gold}")
@@ -327,7 +360,7 @@ def golden_phase(prefix: str, tag: str, flags, gold: str, need,
     for k in forbid:
         if launches[k]:
             raise SystemExit(f"{tag}: kernel {k} was launched")
-    return launches
+    return launches, shapes
 
 
 def golden_phases():
@@ -475,7 +508,8 @@ def timed_run(eng, batches):
     """1 warm batch, then the others with the pipeline's overlap: batch
     i + 1 is launched before batch i is fetched on a background thread.
     The launch counters are set to 0 after the warm batch. Returns
-    (launches, per-batch host ms, wall s, last payload, peak bytes)."""
+    (launches, launches by shape, per-batch host ms, wall s, last payload,
+    peak bytes)."""
     from ghostm_tpu_torch.kernels import _build
 
     eng.fetch(eng.search_refine_async_dna(*batches[0][1:]))   # warm
@@ -499,7 +533,7 @@ def timed_run(eng, batches):
             fut.result()
         last = eng.fetch(pending)
     wall = time.time() - t_start
-    return (dict(_build.LAUNCHES), per_batch, wall, last,
+    return (dict(_build.LAUNCHES), dict(_build.SHAPES), per_batch, wall, last,
             torch.cuda.max_memory_allocated())
 
 
@@ -537,11 +571,12 @@ def scale_phase(n_subjects: int, n_timed: int):
          engine_init_s=t_engine, table_bytes=int(eng.key_table.nbytes),
          table_width=eng.table_width, expand=int(index.expand_width))
 
-    launches, per_batch, wall, last, peak = timed_run(eng, batches)
+    launches, shapes, per_batch, wall, last, peak = timed_run(eng, batches)
     emit(phase="scale", reads=R * n_timed, wall_s=wall,
          reads_per_s=R * n_timed / wall, batch_ms=per_batch,
          max_memory_allocated=peak, launches=launches,
          kernel_launches=per_kernel(launches),
+         shape_launches=shape_counts(shapes),
          hits=int(((last[1] >> 15) > 0).sum()))
     for k in ("sort_rows", "merge_vote_rank_rows", "sw_fused",
               "lex_rank_rows"):
@@ -563,7 +598,7 @@ def scale_phase(n_subjects: int, n_timed: int):
     emit(phase="scale_crosscheck", reads=256, equal=same, hits=hits)
     if not same:
         raise SystemExit("scale: CUDA and CPU engines disagree")
-    return launches, index, eng.key_table, batches
+    return (launches, shapes), index, eng.key_table, batches
 
 
 def score_fed_leg(tag: str, cfg, index, batches, kernel: str,
@@ -577,7 +612,7 @@ def score_fed_leg(tag: str, cfg, index, batches, kernel: str,
     eng = SearchEngine(cfg, index, device="cuda", key_table=key_table)
     torch.cuda.synchronize()
     t_engine = time.time() - t0
-    launches, per_batch, wall, last, peak = timed_run(eng, batches)
+    launches, shapes, per_batch, wall, last, peak = timed_run(eng, batches)
     n = cfg.query_batch * (len(batches) - 1)
     same, xhits = crosscheck(eng, index, batches[1])
     emit(phase=tag, route=eng.route, chunk=eng.chunk,
@@ -586,6 +621,7 @@ def score_fed_leg(tag: str, cfg, index, batches, kernel: str,
          reads=n, wall_s=wall, reads_per_s=n / wall, batch_ms=per_batch,
          max_memory_allocated=peak, launches=launches,
          kernel_launches=per_kernel(launches),
+         shape_launches=shape_counts(shapes),
          hits=int(((last[1] >> 15) > 0).sum()), crosscheck_reads=256,
          crosscheck_equal=same, crosscheck_hits=xhits)
     if launches[kernel] == 0:
@@ -597,7 +633,7 @@ def score_fed_leg(tag: str, cfg, index, batches, kernel: str,
     if not same:
         raise SystemExit(f"{tag}: CUDA and CPU engines disagree")
     emit(phase=f"{tag}_stages", **stage_breakdown(eng, *batches[1][1:]))
-    return launches
+    return launches, shapes
 
 
 def free_cuda() -> None:
@@ -652,22 +688,18 @@ def main() -> int:
         "scale_b50_250bp", cfg, index,
         make_batches(index, 1 + TIMED_B50, 8192, read_len=250), "sw_wave")
     free_cuda()
-    path_of = {"B1 sort_rows": ("scale", "sort_rows"),
-               "B2 sort_vote_rank_rows": ("golden", "sort_vote_rank_rows"),
-               "B2 merge_vote_rank_rows": ("scale", "merge_vote_rank_rows"),
-               "B3 sw_fused": ("scale", "sw_fused"),
-               "B4 lex_rank_rows": ("scale", "lex_rank_rows"),
-               "B5 sw_scored": ("scale_b50", "sw_scored"),
-               "B6 sw_wave": ("scale_b50_250bp", "sw_wave")}
     keys = ("name", "route", "source", "replaces", "launches",
-            "launches_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "launches_path", "launches_wrapper", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
     out = []
     for e in entries:
-        if e["name"] not in path_of:
+        if e["launch"] is None:
             continue   # B5's int32 line: timed, not on a main path here
-        path, counter = path_of[e["name"]]
-        e["launches"] = runs[path][counter]
+        path, wrapper, *shapes = e["launch"]
+        counts, by_shape = runs[path]
+        # launches of this row's shape; the wrapper's count at all shapes
+        e["launches"] = by_shape.get((wrapper, *shapes), 0)
+        e["launches_wrapper"] = counts[wrapper]
         e["launches_path"] = path
         if e["launches"] == 0:
             raise SystemExit(f"{e['name']}: no launch on its path {path}")

@@ -1,6 +1,7 @@
 // Shared helpers of the row-sort kernels (sort_rows.cu, sort_vote.cu,
-// lex_rank.cu): the padding value and one block-wide bitonic network over a
-// row held in shared memory.
+// merge_vote.cu, lex_rank.cu): the padding and invalid-key values, the
+// shared-memory opt-in, and one block-wide bitonic network over a row held
+// in shared memory (sort_vote.cu's monolithic entry).
 #pragma once
 
 #include <cstdint>

@@ -1,49 +1,37 @@
-// Kernel B2: per row, sort + run-length vote + top-ncand.
+// Kernel B2, monolithic entry: per row, sort + run-length vote + top-ncand.
 //
-// Replaces ghostm_tpu/kernels/sort.py::_sort_vote_kernel, both entries:
-//   sort_vote_rank_rows  (b == nullptr) full sort of a (Q, M) key row
-//                        starting at stage `first` (presorted runs);
-//   merge_vote_rank_rows (b != nullptr) the row [a | PAD | flip(b)] of two
-//                        sorted halves, read straight from a and b, and only
-//                        the final bitonic merge stage.
+// Replaces ghostm_tpu/kernels/sort.py::_sort_vote_kernel, entry
+// sort_vote_rank_rows: a full sort of a (Q, M) key row starting at stage
+// `first` (presorted runs). The merge entry (merge_vote_rank_rows) has its
+// own kernel, merge_vote.cu.
 // Then the run length of each distinct valid key (< 2^30) is its vote,
 // zeroed below min_votes, and the top ncand by (votes desc, first position
 // asc) are written as (keys, votes), key 2^30 where votes == 0.
 //
-// Bound on the H100: device-memory bytes — the key rows are read once
-// (128 MB at config-2's merge entry), the outputs are 64 bytes a row.
-// Design: one thread block per row, the row in shared memory (32 KB at
-// L = 8192; 64 KB at L = 16384, the merge row of 88-residue frames, above
-// the 48 KB default, so the launch opts in). The vote needs no scan: a
-// run's length is the distance from its first position to upper_bound(key)
-// over the sorted row, one binary search per run start. Each thread keeps
-// the packed (votes << log2(L)+1 | L-1-i) words of its elements in
-// registers; ncand
-// block-wide max reductions pick the candidates (the packing needs
-// 2 * bit_length(L) <= 31, checked by the wrapper).
+// Bound on the H100: operations at the golden shape (768 rows of 608 keys:
+// the network and the vote outweigh the 1.9 MB read).
+// Design: one thread block per row, the row in shared memory (4 L bytes;
+// above the 48 KB default the launch opts in, up to 64 KB). The vote needs
+// no scan: a run's length is the distance from its first position to
+// upper_bound(key) over the sorted row, one binary search per run start.
+// Each thread keeps the packed (votes << log2(L)+1 | L-1-i) words of its
+// elements in registers; ncand block-wide max reductions pick the
+// candidates (the packing needs 2 * bit_length(L) <= 31, checked by the
+// wrapper).
 #include "bitonic.cuh"
 
 // EPT = keys per thread: 8 for L <= 8192, 16 for L = 16384 (1024 threads)
 template <int EPT>
-__global__ void sort_vote_kernel(const int32_t* __restrict__ a,
-                                 const int32_t* __restrict__ b, int M, int Mb,
+__global__ void sort_vote_kernel(const int32_t* __restrict__ a, int M,
                                  int L, int first, int ncand, int min_votes,
                                  int32_t* __restrict__ keys,
                                  int32_t* __restrict__ votes) {
   extern __shared__ int32_t s[];
   __shared__ int32_t red[32];
   const size_t r = blockIdx.x;
-  if (b == nullptr) {
-    const int32_t* row = a + r * M;
-    for (int i = threadIdx.x; i < L; i += blockDim.x)
-      s[i] = i < M ? row[i] : GHOSTM_PAD;
-  } else {
-    // merge entry: M is La = L / 2; positions [L - Mb, L) hold flip(b)
-    const int32_t* ra = a + r * M;
-    const int32_t* rb = b + r * Mb;
-    for (int i = threadIdx.x; i < L; i += blockDim.x)
-      s[i] = i < M ? ra[i] : (i < L - Mb ? GHOSTM_PAD : rb[L - 1 - i]);
-  }
+  const int32_t* row = a + r * M;
+  for (int i = threadIdx.x; i < L; i += blockDim.x)
+    s[i] = i < M ? row[i] : GHOSTM_PAD;
   __syncthreads();
   bitonic_block(s, L, first);
 
@@ -96,25 +84,24 @@ __global__ void sort_vote_kernel(const int32_t* __restrict__ a,
   }
 }
 
-// Monolithic entry: a (Q, M), b = nullptr, Mb = 0, first = log2(run) + 1.
-// Merge entry: a (Q, La) with M = La, b (Q, Mb), L = 2 La, first = log2(L).
-// keys, votes: (Q, ncand) int32. L = pow2 >= 128, L <= 16384.
-extern "C" int ghostm_sort_vote_rows(const int32_t* a, const int32_t* b, int Q,
-                                     int M, int Mb, int L, int first,
-                                     int ncand, int min_votes, int32_t* keys,
-                                     int32_t* votes, cudaStream_t stream) {
+// a (Q, M), first = log2(run) + 1; keys, votes: (Q, ncand) int32.
+// L = pow2 >= max(M, 128), L <= 16384.
+extern "C" int ghostm_sort_vote_rows(const int32_t* a, int Q, int M, int L,
+                                     int first, int ncand, int min_votes,
+                                     int32_t* keys, int32_t* votes,
+                                     cudaStream_t stream) {
   const int threads = L / 2 < 1024 ? L / 2 : 1024;
   const int shm = L * (int)sizeof(int32_t);
   if (L / threads <= 8) {
     if (!row_smem_ok(sort_vote_kernel<8>, shm))
       return (int)cudaErrorInvalidValue;
     sort_vote_kernel<8><<<Q, threads, shm, stream>>>(
-        a, b, M, Mb, L, first, ncand, min_votes, keys, votes);
+        a, M, L, first, ncand, min_votes, keys, votes);
   } else if (L / threads <= 16) {
     if (!row_smem_ok(sort_vote_kernel<16>, shm))
       return (int)cudaErrorInvalidValue;
     sort_vote_kernel<16><<<Q, threads, shm, stream>>>(
-        a, b, M, Mb, L, first, ncand, min_votes, keys, votes);
+        a, M, L, first, ncand, min_votes, keys, votes);
   } else {
     return (int)cudaErrorInvalidValue;
   }

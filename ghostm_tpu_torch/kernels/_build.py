@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
 from typing import Dict
 
@@ -29,8 +30,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("sort_rows", "sort_vote", "sw_fused", "lex_rank", "sw_scored",
-           "sw_wave")
+SOURCES = ("sort_rows", "sort_vote", "merge_vote", "sw_fused", "lex_rank",
+           "sw_scored", "sw_wave")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -38,15 +39,24 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # Launch counts, one per kernel wrapper: a wrapper adds one where it
 # launches its kernel and nowhere else (a CPU tensor's plain version does
 # not count), so a run can show that its path went through the kernels.
+# SHAPES counts the same launches by (wrapper, input shapes).
 LAUNCHES: Dict[str, int] = dict.fromkeys((
     "sort_rows", "sort_vote_rank_rows", "merge_vote_rank_rows", "sw_fused",
     "lex_rank_rows", "sw_scored", "sw_wave",
 ), 0)
+SHAPES: Counter = Counter()
+
+
+def count(name: str, *shapes) -> None:
+    """One launch of `name` on inputs of `shapes`."""
+    LAUNCHES[name] += 1
+    SHAPES[(name, *(tuple(s) for s in shapes))] += 1
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SHAPES.clear()
 
 
 def _nvcc() -> str:

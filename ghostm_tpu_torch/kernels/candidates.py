@@ -57,8 +57,8 @@ def vote_and_rank(
         m1 = run << (nruns.bit_length() - 1) if nruns else 0
         if nruns and (nruns & (nruns - 1)) and m1 >= 1024:
             # SPLIT SORT: sort the leading 2^a runs and the remainder
-            # separately, then one final bitonic merge inside the vote
-            # kernel — the same unique integer sort in fewer passes than a
+            # separately, then merge the two sorted halves inside the vote
+            # kernel — the same unique integer sort in less work than a
             # row padded to the next power of two
             a = sort.sort_rows(keys[:, :m1].contiguous(), presorted_run=run)
             b = sort.sort_rows(keys[:, m1:].contiguous(), presorted_run=run)

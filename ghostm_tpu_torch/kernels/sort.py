@@ -2,9 +2,10 @@
 
 Each wrapper takes int32 tensors. A CPU tensor goes through the plain
 PyTorch version beside it; a CUDA tensor launches the hand-written kernel
-(csrc/sort_rows.cu, csrc/sort_vote.cu, csrc/lex_rank.cu) or raises. Both
-give the same integers: an integer sort's output is unique, and the
-kernels' tie-breaks are the plain versions' tie-breaks.
+(csrc/sort_rows.cu, csrc/sort_vote.cu, csrc/merge_vote.cu,
+csrc/lex_rank.cu) or raises. Both give the same integers: an integer
+sort's output is unique, and the kernels' tie-breaks are the plain
+versions' tie-breaks.
 
   B1 sort_rows             ascending sort of each row (torch.sort)
   B2 sort_vote_rank_rows   sort + run-length vote + top-ncand per row
@@ -48,6 +49,11 @@ def _check_run(M: int, presorted_run: int) -> int:
     if run & (run - 1) or (run > 1 and M % run):
         raise ValueError(f"presorted_run={presorted_run} invalid for M={M}")
     return run
+
+
+def _aligned(*xs: torch.Tensor) -> bool:
+    """Rows of every x start on 16 bytes: the kernels' int4 accesses."""
+    return all(x.shape[-1] % 4 == 0 and x.data_ptr() % 16 == 0 for x in xs)
 
 
 def _check_cuda(*xs: torch.Tensor) -> None:
@@ -153,11 +159,12 @@ def sort_rows(x: torch.Tensor, presorted_run: int = 0) -> torch.Tensor:
         return out
     lib = _build.load("sort_rows")
     fn = lib.ghostm_sort_rows
-    fn.argtypes = [_P, _P, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P]
     fn.restype = _I
     _build.check(fn(x.data_ptr(), out.data_ptr(), Q, M, L, run.bit_length(),
-                    _build.stream_ptr(x.device)), "sort_rows")
-    _build.LAUNCHES["sort_rows"] += 1
+                    int(_aligned(x, out)), _build.stream_ptr(x.device)),
+                 "sort_rows")
+    _build.count("sort_rows", x.shape)
     return out
 
 
@@ -201,12 +208,12 @@ def sort_vote_rank_rows(x: torch.Tensor, ncand: int, min_votes: int,
     first = min(run.bit_length(), L.bit_length())
     lib = _build.load("sort_vote")
     fn = lib.ghostm_sort_vote_rows
-    fn.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
+    fn.argtypes = [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P]
     fn.restype = _I
-    _build.check(fn(x.data_ptr(), None, Q, M, 0, L, first, ncand, min_votes,
+    _build.check(fn(x.data_ptr(), Q, M, L, first, ncand, min_votes,
                     keys.data_ptr(), votes.data_ptr(),
                     _build.stream_ptr(x.device)), "sort_vote_rank_rows")
-    _build.LAUNCHES["sort_vote_rank_rows"] += 1
+    _build.count("sort_vote_rank_rows", x.shape)
     return keys, votes
 
 
@@ -228,8 +235,8 @@ def merge_vote_rank_rows(a: torch.Tensor, b: torch.Tensor, ncand: int,
                          min_votes: int):
     """Vote + top-ncand over the UNION of two row-sorted key arrays:
     a (Q, La) with La a power of two >= 128, b (Q, Mb) with Mb <= La.
-    The kernel reads [a | PAD | flip(b)] (a bitonic row) straight from a
-    and b and runs only the final bitonic merge stage. Replaces
+    The kernel merges the valid prefixes of a and b (merge path) and
+    counts the runs as it merges. Replaces
     kernels/sort.py::merge_vote_rank_rows (Pallas _sort_vote_kernel,
     merge entry)."""
     if a.device.type == "cpu":
@@ -247,15 +254,15 @@ def merge_vote_rank_rows(a: torch.Tensor, b: torch.Tensor, ncand: int,
     votes = torch.empty_like(keys)
     if Q == 0:
         return keys, votes
-    lib = _build.load("sort_vote")
-    fn = lib.ghostm_sort_vote_rows
-    fn.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
+    lib = _build.load("merge_vote")
+    fn = lib.ghostm_merge_vote_rows
+    fn.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]
     fn.restype = _I
-    _build.check(fn(a.data_ptr(), b.data_ptr(), Q, La, Mb, L,
-                    L.bit_length() - 1, ncand, min_votes, keys.data_ptr(),
-                    votes.data_ptr(), _build.stream_ptr(a.device)),
-                 "merge_vote_rank_rows")
-    _build.LAUNCHES["merge_vote_rank_rows"] += 1
+    vec = int(_aligned(a)) | 2 * int(_aligned(b))
+    _build.check(fn(a.data_ptr(), b.data_ptr(), Q, La, Mb, ncand, min_votes,
+                    vec, keys.data_ptr(), votes.data_ptr(),
+                    _build.stream_ptr(a.device)), "merge_vote_rank_rows")
+    _build.count("merge_vote_rank_rows", a.shape, b.shape)
     return keys, votes
 
 
@@ -302,5 +309,5 @@ def lex_rank_rows(ops: torch.Tensor, num_keys: int, topk: int) -> torch.Tensor:
     fn.restype = _I
     _build.check(fn(ops.data_ptr(), out.data_ptr(), nops, Q, M, L, num_keys,
                     topk, _build.stream_ptr(ops.device)), "lex_rank_rows")
-    _build.LAUNCHES["lex_rank_rows"] += 1
+    _build.count("lex_rank_rows", ops.shape)
     return out

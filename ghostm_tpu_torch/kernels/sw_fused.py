@@ -139,5 +139,5 @@ def sw_fused(qcodes: torch.Tensor, windows: torch.Tensor,
         gap_open + gap_extend, gap_extend, out[0].data_ptr(),
         out[1].data_ptr(), out[2].data_ptr(), _build.stream_ptr(qcodes.device),
     ), "sw_fused")
-    _build.LAUNCHES["sw_fused"] += 1
+    _build.count("sw_fused", qcodes.shape)
     return out[0], out[1], out[2]

@@ -57,7 +57,7 @@ def launch(name: str, sc: torch.Tensor, gap_open: int, gap_extend: int):
         gap_open + gap_extend, gap_extend, out[0].data_ptr(),
         out[1].data_ptr(), out[2].data_ptr(), _build.stream_ptr(sc.device),
     ), name)
-    _build.LAUNCHES[name] += 1
+    _build.count(name, sc.shape)
     return out[0], out[1], out[2]
 
 

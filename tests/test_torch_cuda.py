@@ -28,13 +28,57 @@ def dev():
     return torch.device("cuda")
 
 
+def _presorted(k, run):
+    """Runs of `run` sorted, odd runs descending (the stage-skip input)."""
+    q, m = k.shape
+    k = torch.sort(k.view(q, m // run, run), dim=2).values
+    k[:, 1::2] = torch.flip(k[:, 1::2], [2])
+    return k.reshape(q, m).contiguous()
+
+
 def _keys(gen, q, m, run, hi, dev, big_frac=0.4):
     k = torch.randint(0, hi, (q, m), generator=gen, dtype=torch.int32)
     k[torch.rand((q, m), generator=gen) < big_frac] = BIG
     if run > 1:
-        k = torch.sort(k.view(q, m // run, run), dim=2).values
-        k[:, 1::2] = torch.flip(k[:, 1::2], [2])
-    return k.reshape(q, m).contiguous().to(dev)
+        k = _presorted(k, run)
+    return k.to(dev)
+
+
+def _cases(old, new):
+    """The earlier cases (random rows, their ids unchanged) and new ones
+    whose last field names the kind of row (_fill)."""
+    return ([pytest.param(*c, "rand", id="-".join(map(str, c))) for c in old]
+            + [pytest.param(*c) for c in new])
+
+
+def _fill(k, kind, gen):
+    """Rows that a register network or a merge path gets wrong: one value
+    (a run over the whole row, across threads, warps and the a/b split),
+    only BIG, only PAD, fewer distinct keys than candidates, every key
+    exactly twice (vote ties across warps, broken by key)."""
+    q, m = k.shape
+    if kind == "equal":
+        k[:] = 12345
+    elif kind == "big":
+        k[:] = BIG
+    elif kind == "pad":
+        k[:] = S.PAD
+    elif kind == "few":
+        k[:] = torch.randint(0, 5, (q, m), generator=gen, dtype=torch.int32)
+        k[torch.rand((q, m), generator=gen) < 0.2] = BIG
+    elif kind == "ties":
+        k[:] = torch.stack([torch.randperm(m, generator=gen) // 2
+                            for _ in range(q)]).to(torch.int32)
+    return k
+
+
+def _unaligned(x):
+    """A contiguous copy of x whose data starts 4 bytes past 16-byte
+    alignment: the kernels' scalar load and store edge."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
 
 
 def _launched(name, fn):
@@ -45,16 +89,29 @@ def _launched(name, fn):
     return out
 
 
-@pytest.mark.parametrize("q,m,run", [
+@pytest.mark.parametrize("q,m,run,kind", _cases([
     (5, 7, 0), (128, 1, 0), (33, 300, 0), (64, 4096, 128), (64, 512, 128),
     (8, 8192, 0), (16, 2048, 2048), (6, 16384, 128),
-])
-def test_sort_rows_kernel(dev, q, m, run):
+], [
+    (9, 128, 0, "rand"), (3, 16384, 0, "rand"), (7, 5000, 0, "rand"),
+    (65, 2560, 128, "rand"), (31, 1024, 16, "rand"), (5, 256, 0, "rand"),
+    (10, 4096, 128, "equal"), (10, 4096, 128, "big"), (10, 512, 128, "pad"),
+    (12, 640, 128, "few"), (4, 16384, 128, "few"),
+    (40, 4096, 128, "unaligned"), (40, 300, 0, "unaligned"),
+]))
+def test_sort_rows_kernel(dev, q, m, run, kind):
     gen = torch.Generator().manual_seed(q * m)
     x = _keys(gen, q, m, run or 1, 1 << 30, dev, 0.0)
     if run == 0:
         x = torch.randint(-(1 << 31), (1 << 31) - 1, (q, m), generator=gen,
                           dtype=torch.int32).to(dev)
+    if kind in ("equal", "big", "pad", "few"):
+        x = _fill(x.cpu(), kind, gen)
+        if run > 1:   # re-establish the presorted runs
+            x = _presorted(x, run)
+        x = x.to(dev)
+    elif kind == "unaligned":
+        x = _unaligned(x)
     got = _launched("sort_rows", lambda: S.sort_rows(x, presorted_run=run))
     assert torch.equal(got, S.sort_rows_plain(x, presorted_run=run))
 
@@ -72,18 +129,43 @@ def test_sort_vote_kernel(dev, q, m, run, minv, hi):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("q,la,mb,minv,hi", [
+@pytest.mark.parametrize("q,la,mb,minv,hi,kind", _cases([
     (256, 4096, 512, 1, 1 << 12), (64, 128, 1, 1, 50),
     (32, 1024, 1024, 2, 300), (16, 2048, 7, 1, 1 << 20),
     (24, 8192, 2560, 1, 1 << 14),   # 88-residue frames: a 64 KB row
-])
-def test_merge_vote_kernel(dev, q, la, mb, minv, hi):
+], [
+    (64, 8192, 2560, 1, 1 << 22, "rand"),   # the 250 bp merge shape
+    (16, 4096, 4096, 1, 1 << 12, "rand"),   # Mb = La
+    (16, 8192, 1, 1, 1 << 14, "rand"),      # Mb = 1
+    (16, 4096, 512, 1, 0, "equal"), (16, 4096, 512, 1, 0, "big_a"),
+    (16, 4096, 512, 1, 0, "pad"), (16, 4096, 512, 1, 0, "few"),
+    (16, 4096, 512, 1, 0, "ties"), (16, 8192, 8192, 1, 0, "ties"),
+    (16, 4096, 512, 1, 1 << 12, "invalid_b"),
+    (16, 4096, 512, 100000, 1 << 12, "rand"),   # min_votes above every run
+    (16, 128, 128, 1, 30, "rand"),
+    (40, 4096, 512, 1, 1 << 12, "unaligned"),
+    (8, 4096, 512, 1, 1 << 12, "ncand32"), (8, 1024, 100, 1, 300, "ncand128"),
+]))
+def test_merge_vote_kernel(dev, q, la, mb, minv, hi, kind):
     gen = torch.Generator().manual_seed(la + mb)
-    a = torch.sort(_keys(gen, q, la, 1, hi, dev), dim=1).values.contiguous()
-    b = torch.sort(_keys(gen, q, mb, 1, hi, dev), dim=1).values.contiguous()
+    if hi:
+        a = _keys(gen, q, la, 1, hi, "cpu")
+        b = _keys(gen, q, mb, 1, hi, "cpu")
+    else:   # one row drawn whole, then split: runs cross the a/b boundary
+        ab = _fill(torch.zeros((q, la + mb), dtype=torch.int32), kind, gen)
+        a, b = ab[:, :la], ab[:, la:]
+    if kind == "big_a":
+        a[:] = BIG
+    elif kind == "invalid_b":
+        b[:] = BIG
+    a = torch.sort(a, dim=1).values.contiguous().to(dev)
+    b = torch.sort(b, dim=1).values.contiguous().to(dev)
+    if kind == "unaligned":
+        a, b = _unaligned(a), _unaligned(b)
+    ncand = int(kind[5:]) if kind.startswith("ncand") else 8
     got = _launched("merge_vote_rank_rows",
-                    lambda: S.merge_vote_rank_rows(a, b, 8, minv))
-    want = S.merge_vote_rank_rows_plain(a, b, 8, minv)
+                    lambda: S.merge_vote_rank_rows(a, b, ncand, minv))
+    want = S.merge_vote_rank_rows_plain(a, b, ncand, minv)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 

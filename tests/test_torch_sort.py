@@ -34,27 +34,65 @@ def _eq(t, j):
     np.testing.assert_array_equal(t.numpy(), np.asarray(j))
 
 
-@pytest.mark.parametrize("q,m,run", [
+def _cases(old, new):
+    """The earlier cases (random rows, their ids unchanged) and new ones
+    whose last field names the kind of row (_fill)."""
+    return ([pytest.param(*c, "rand", id="-".join(map(str, c))) for c in old]
+            + [pytest.param(*c) for c in new])
+
+
+def _fill(keys, kind, rng):
+    """Rows that a register or merge-path design gets wrong: one value
+    (one run over the whole row), only BIG, only PAD, fewer distinct keys
+    than candidates (long runs across threads, warps and the a/b split),
+    every key exactly twice (vote ties broken by key)."""
+    q, m = keys.shape
+    if kind == "equal":
+        keys[:] = 12345
+    elif kind == "big":
+        keys[:] = BIG
+    elif kind == "pad":
+        keys[:] = tsort.PAD
+    elif kind == "few":
+        keys[:] = rng.integers(0, 5, (q, m))
+        keys[rng.random((q, m)) < 0.2] = BIG
+    elif kind == "ties":
+        keys[:] = np.stack([rng.permutation(np.arange(m) // 2)
+                            for _ in range(q)])
+    return keys
+
+
+@pytest.mark.parametrize("q,m,run,kind", _cases([
     (8, 128, 0), (16, 100, 0), (5, 7, 0), (128, 1, 0),
     (8, 256, 16), (8, 512, 512), (4, 640, 128),
-])
-def test_sort_rows_matches_jax(rng, q, m, run):
+], [
+    (4, 300, 0, "equal"), (4, 256, 16, "big"), (3, 640, 128, "pad"),
+    (3, 1000, 0, "rand"), (2, 2560, 128, "few"), (2, 16384, 128, "rand"),
+]))
+def test_sort_rows_matches_jax(rng, q, m, run, kind):
     x = rng.integers(-(1 << 30), 1 << 30, (q, m)).astype(np.int32)
     if run:
         x[rng.random((q, m)) < 0.3] = BIG
+    x = _fill(x, kind, rng)
+    if run:
         x = _presorted(x, run)
     got = tsort.sort_rows(torch.from_numpy(x), presorted_run=run)
     _eq(got, jsort.sort_rows(jnp.asarray(x), presorted_run=run,
                              interpret=True))
 
 
-@pytest.mark.parametrize("q,m,run,minv", [
+@pytest.mark.parametrize("q,m,run,minv,kind", _cases([
     (8, 640, 128, 2), (8, 96, 1, 1), (4, 608, 16, 1),
-])
-def test_sort_vote_rank_rows_matches_jax(rng, q, m, run, minv):
+], [
+    (4, 608, 16, 1, "equal"), (4, 608, 16, 1, "big"), (4, 640, 128, 1, "pad"),
+    (4, 608, 16, 1, "few"), (4, 608, 16, 1, "ties"),
+    (4, 608, 16, 1000, "rand"),
+]))
+def test_sort_vote_rank_rows_matches_jax(rng, q, m, run, minv, kind):
     """(4, 608, run 16) is the golden config-1 shape (L = 1024)."""
     keys = rng.integers(0, 40 * 128, (q, m)).astype(np.int32)
     keys[rng.random((q, m)) < 0.4] = BIG
+    keys = _fill(keys, kind, rng)
     if run > 1:
         keys = _presorted(keys, run)
     gk, gv = tsort.sort_vote_rank_rows(torch.from_numpy(keys), 8, minv,
@@ -65,19 +103,30 @@ def test_sort_vote_rank_rows_matches_jax(rng, q, m, run, minv):
     _eq(gv, wv)
 
 
-@pytest.mark.parametrize("q,nruns,run,minv", [
+@pytest.mark.parametrize("q,nruns,run,minv,kind", _cases([
     (4, 36, 128, 1), (6, 6, 256, 2), (4, 5, 1024, 1),
-])
-def test_merge_vote_rank_rows_matches_jax(rng, q, nruns, run, minv):
+], [
+    (3, 129, 1, 1, "rand"),          # Mb = 1
+    (3, 2, 128, 1, "halves"),        # Mb = La
+    (3, 36, 128, 1, "equal"), (3, 36, 128, 1, "big_a"),
+    (3, 36, 128, 1, "pad"), (3, 36, 128, 1, "few"),
+    (3, 36, 128, 1, "ties"), (3, 36, 128, 1, "invalid_b"),
+    (3, 36, 128, 1000, "rand"),      # min_votes above every run
+]))
+def test_merge_vote_rank_rows_matches_jax(rng, q, nruns, run, minv, kind):
     """(36 runs of 128) is config-2's split: (Q, 4096) + (Q, 512)."""
     m = nruns * run
     keys = rng.integers(0, 1 << 24, (q, m)).astype(np.int32)
     keys[rng.random((q, m)) < 0.4] = BIG
     keys[rng.random((q, m)) < 0.3] = 12345   # votes stack across runs
-    keys = _presorted(keys, run)
-    m1 = run << (nruns.bit_length() - 1)
+    keys = _presorted(_fill(keys, kind, rng), run)
+    m1 = m // 2 if kind == "halves" else run << (nruns.bit_length() - 1)
     a = np.sort(keys[:, :m1], axis=1)
     b = np.sort(keys[:, m1:], axis=1)
+    if kind == "big_a":
+        a[:] = BIG
+    elif kind == "invalid_b":
+        b[:] = BIG
     gk, gv = tsort.merge_vote_rank_rows(torch.from_numpy(a),
                                         torch.from_numpy(b), 8, minv)
     wk, wv = jsort.merge_vote_rank_rows(jnp.asarray(a), jnp.asarray(b), 8,
