@@ -7,11 +7,14 @@ Phases, each printing one JSON line ({"phase": ...}):
   device   the card's name and power limit (nvidia-smi);
   build    nvcc of every kernel source in csrc/, in parallel;
   kernels  each kernel's wrapper at its main-path shapes on seeded inputs
-           (B1 and B2's merge entry at the shapes of both read lengths),
-           held against its plain PyTorch version on the card (integer
-           outputs: equal, max_abs_err 0), with CUDA-event times of the
-           kernel, the plain version, torch.sort as B1's yardstick, and
-           the least time the card could take (bound_ms);
+           (B1 and B2's merge entry at the shapes of both read lengths,
+           B3 also at band 64), held against its plain PyTorch version on
+           the card (integer outputs: equal, max_abs_err 0), with CUDA-event
+           times of the kernel, the plain version, torch.sort as B1's
+           yardstick, and the least time the card could take (bound_ms);
+           the SW rows also give the instructions a cell their time
+           implies, and B3's and B5's rows their device time without the
+           wrapper's host work (device_ms);
   golden   `db` + `aln --batch 128` through the port's CLI on CUDA over
            tests/golden/config1_*, byte-compared with the golden table;
   golden_b50  the same index through `aln --matrix BLOSUM50 --gap-open 13
@@ -76,14 +79,28 @@ def smi() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
+def max_sm_clock_hz() -> float:
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()[0]) * 1e6
+
+
+def time_ms(fn, reps: int, flush: torch.Tensor,
+            device_only: bool = False) -> float:
     """Median CUDA-event time of one call, L2 flushed before each (the
-    inputs of the big calls exceed the 50 MB L2 anyway)."""
+    inputs of the big calls exceed the 50 MB L2 anyway). The span holds
+    whatever host work of the call the device waits for. device_only: the
+    device sleeps ~1 ms before the first event, so the host has enqueued
+    the call by then and the events time its device work alone."""
     fn()
     torch.cuda.synchronize()
     ts = []
     for _ in range(reps):
         flush.zero_()
+        if device_only:
+            torch.cuda._sleep(2_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -151,19 +168,28 @@ def kernel_phase(dev):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    issue_hz = (torch.cuda.get_device_properties(dev).multi_processor_count
+                * 4 * max_sm_clock_hz())
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
     ncand = 8
     entries = []
 
     def run(name, source, replaces, kern, plain, library, nbytes, nops,
-            ops_note, reps=20, launch=None, **extra):
+            ops_note, reps=20, launch=None, cells=None, device_ms=False,
+            **extra):
         """launch: (main path, wrapper, input shapes) of the launches that
-        the final line reports for this row; None: not on a main path."""
+        the final line reports for this row; None: not on a main path.
+        cells: the DP cells of an SW row, for the thread-instructions a
+        cell its time allows (issue slots of 4 schedulers an SM at the top
+        clock, 32 lanes each). device_ms: also time the wrapper's device
+        work without its host work."""
         out_k, out_p = kern(), plain()
         torch.cuda.synchronize()
         err = max_err(out_k, out_p)
         equal = err == 0
         ms = time_ms(kern, reps, flush)
+        if device_ms:
+            extra["device_ms"] = time_ms(kern, reps, flush, device_only=True)
         plain_ms = time_ms(plain, 3, flush)
         lib_ms = time_ms(library, reps, flush) if library else None
         b_ms, b_by = bound(nbytes, nops)
@@ -172,11 +198,12 @@ def kernel_phase(dev):
                  library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                  bytes=nbytes, ops=nops, ops_counted=ops_note,
                  launch=launch, **extra)
+        if cells:
+            e["instr_per_cell"] = ms * 1e-3 * issue_hz * 32 / cells
         emit(phase="kernels", **e)
         entries.append(e)
         if not equal:
             raise SystemExit(f"{name}: kernel differs from its plain version")
-        return out_k
 
     def sort_ops(q, L, first, extra_per_elem=0):
         passes = sum(range(first, L.bit_length()))
@@ -226,24 +253,31 @@ def kernel_phase(dev):
             f"2 per compare-exchange (stage {L.bit_length() - 1}) "
             "+ (1 + 2 ncand) per key",
             launch=(leg, "merge_vote_rank_rows", (q, ma), (q, mb)))
-    # B3: config-2 align, 49152 frames x 8 candidates, Lq 40, band 32
-    N, Lq, B = 393_216, 40, 32
+    # B3: config-2 align, 49152 frames x 8 candidates, Lq 40, band 32;
+    # then band 64 (not on a main path: two lanes an alignment); the score
+    # table built once, as the engine builds it
     mat = torch.from_numpy(padded_matrix("BLOSUM62").astype(np.int32)).to(dev)
-    q = torch.randint(0, 26, (N, Lq), generator=gen, device=dev,
-                      dtype=torch.int8)
-    w = torch.randint(0, 26, (N, Lq + B), generator=gen, device=dev,
-                      dtype=torch.int8)
-    w[::2, 8:8 + Lq] = q[::2]     # half the pairs related: real alignments
-    lo = torch.randint(0, 8, (N,), generator=gen, device=dev,
-                       dtype=torch.int32)
-    hi = torch.randint(Lq // 2, Lq + B, (N,), generator=gen, device=dev,
-                       dtype=torch.int32)
-    run("B3 sw_fused", "ghostm_tpu_torch/csrc/sw_fused.cu",
-        "ghostm_tpu/kernels/sw_fused.py:129",
-        lambda: F.sw_fused(q, w, mat, lo, hi, 11, 1, B, 23),
-        lambda: F.sw_fused_plain(q, w, mat, lo, hi, 11, 1, B, 23),
-        None, N * (Lq + Lq + B + 8 + 12), 12 * N * Lq * B,
-        "12 int32 ops per DP cell", launch=("scale", "sw_fused", (N, Lq)))
+    tab = F.score_table(mat, 23)
+    for N, Lq, B, launch in ((393_216, 40, 32, ("scale", "sw_fused",
+                                                 (393_216, 40))),
+                             (393_216, 40, 64, None)):
+        q = torch.randint(0, 26, (N, Lq), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(0, 26, (N, Lq + B), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w[::2, 8:8 + Lq] = q[::2]   # half the pairs related: real alignments
+        lo = torch.randint(0, 8, (N,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        hi = torch.randint(Lq // 2, Lq + B, (N,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        run("B3 sw_fused" + ("" if B == 32 else f" (band {B})"),
+            "ghostm_tpu_torch/csrc/sw_fused.cu",
+            "ghostm_tpu/kernels/sw_fused.py:129",
+            lambda: F.sw_fused(q, w, mat, lo, hi, 11, 1, B, 23, table=tab),
+            lambda: F.sw_fused_plain(q, w, mat, lo, hi, 11, 1, B, 23),
+            None, N * (Lq + Lq + B + 8 + 12), 12 * N * Lq * B,
+            "12 int32 ops per DP cell", launch=launch, cells=N * Lq * B,
+            device_ms=True, shape=[N, Lq, B])
     # B4: config-2 rank, 9 operands x (8192 reads, 48 hits), 5 keys, top 10
     R, M, nops = 8192, 48, 9
     ops = torch.randint(0, 6, (nops, R, M), generator=gen, device=dev,
@@ -290,7 +324,9 @@ def kernel_phase(dev):
     sc = tile(q, w, lo, hi, B, True)
     # B3 on the same alignments and matrix: its int8 table holds
     # BLOSUM50's [-5, 15]; a yardstick only, no route changes
-    fused = lambda: F.sw_fused(q, w, mat50, lo, hi, 13, 2, B, climit50)
+    tab50 = F.score_table(mat50, climit50)
+    fused = lambda: F.sw_fused(q, w, mat50, lo, hi, 13, 2, B, climit50,
+                               table=tab50)
     same = max_err(fused(), SF.sw_banded_scored_plain(sc, 13, 2))
     run("B5 sw_scored", "ghostm_tpu_torch/csrc/sw_scored.cu",
         "ghostm_tpu/kernels/sw_pallas.py:57",
@@ -298,8 +334,9 @@ def kernel_phase(dev):
         lambda: SF.sw_banded_scored_plain(sc, 13, 2),
         None, sc.numel() + 3 * N * 4, 12 * N * Lq * B,
         "12 int32 ops per DP cell", shape=[N, Lq, B], dtype="int8",
-        launch=("scale_b50", "sw_scored", (N, Lq, B)),
-        fused_same_work_ms=time_ms(fused, 20, flush),
+        launch=("scale_b50", "sw_scored", (N, Lq, B)), cells=N * Lq * B,
+        device_ms=True, fused_same_work_ms=time_ms(fused, 20, flush),
+        fused_same_work_device_ms=time_ms(fused, 20, flush, device_only=True),
         fused_same_work_max_abs_err=same)
     N, Lq, B = 8192, 40, 24
     q, w, lo, hi = pairs(N, Lq, B)
@@ -309,7 +346,8 @@ def kernel_phase(dev):
         lambda: SF.sw_banded_scored(sc, 13, 2),
         lambda: SF.sw_banded_scored_plain(sc, 13, 2),
         None, sc.numel() * 4 + 3 * N * 4, 12 * N * Lq * B,
-        "12 int32 ops per DP cell", shape=[N, Lq, B], dtype="int32")
+        "12 int32 ops per DP cell", shape=[N, Lq, B], dtype="int32",
+        cells=N * Lq * B)
     N, Lq, B = 8192, 88, 32
     q, w, lo, hi = pairs(N, Lq, B)
     sc = tile(q, w, lo, hi, B, True)
@@ -319,7 +357,7 @@ def kernel_phase(dev):
         lambda: SW.sw_banded_wave_plain(sc, 13, 2),
         None, sc.numel() + 3 * N * 4, 12 * N * Lq * B,
         "12 int32 ops per DP cell", shape=[N, Lq, B], dtype="int8",
-        launch=("scale_b50_250bp", "sw_wave", (N, Lq, B)))
+        launch=("scale_b50_250bp", "sw_wave", (N, Lq, B)), cells=N * Lq * B)
     del x, k1, keys, a, b, q, w, lo, hi, sc, ops, flush
     torch.cuda.empty_cache()
     return entries

@@ -289,9 +289,11 @@ def align_shard(
     srow_identity: int,
     route: str = "fused",
     chunk: int = 8192,
+    fused_table: torch.Tensor | None = None,
 ):
     """Returns (score, qend, bend, s_end, g0, srow, owned), each (Qf, C);
-    score is 0 for candidates this shard does not own.
+    score is 0 for candidates this shard does not own. fused_table: B3's
+    score_table(matrix, code_limit), when the caller keeps one.
 
     srow_identity = S: the caller guarantees subject_ids[:S] == arange(S)
     (every one-shard index), so the gsid -> row map is the identity.
@@ -324,7 +326,7 @@ def align_shard(
         s, ie, be = sw_fused.sw_fused(
             qrep, w, matrix, (lo.reshape(N) - g0f).contiguous(),
             (hi.reshape(N) - g0f).contiguous(), gap_open, gap_extend, band,
-            code_limit=code_limit,
+            code_limit=code_limit, table=fused_table,
         )
     else:
         lof, hif = lo.reshape(N), hi.reshape(N)
@@ -482,6 +484,9 @@ class SearchEngine:
         dev = self.device
         to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
         self.matrix = to(mat.astype(np.int32))
+        # B3's score table, once (the wrapper would build it every call)
+        self.fused_table = (sw_fused.score_table(self.matrix, self.code_limit)
+                            if self.route == "fused" else None)
         self.buffer = to(pad_buffer(index.buffers[0], cfg))
         self.starts = to(index.starts[0].astype(np.int32))
         self.subject_ids = to(index.subject_ids[0].astype(np.int32))
@@ -511,7 +516,7 @@ class SearchEngine:
             sel_g, sel_b, band=cfg.band_width, gap_open=cfg.gap_open,
             gap_extend=cfg.gap_extend, lead=self.lead,
             code_limit=self.code_limit, srow_identity=self.srow_identity,
-            route=self.route, chunk=self.chunk,
+            route=self.route, chunk=self.chunk, fused_table=self.fused_table,
         )
 
     def search_packed(self, qcodes3: torch.Tensor) -> torch.Tensor:

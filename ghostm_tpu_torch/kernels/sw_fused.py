@@ -3,13 +3,18 @@ inside the kernel (csrc/sw_fused.cu), beside its plain PyTorch version.
 
 Replaces the JAX package's kernels/sw_fused.py::sw_fused_wave. There the
 scores came from nibble-packed profile words and select trees because the
-TPU has no vector gather; on the GPU the kernel keeps the 32 x 32 int8 score
-table in shared memory. The routing predicates stay the JAX package's:
-`fused_ok` (the engine's chunk sizing and path choice) and
-`build_packed_matrix` returning None, which is how a matrix outside the
-nibble range [-4, 11] (BLOSUM50, PAM30) is detected — those take the
-score-fed kernels B5/B6 (kernels/sw_scored.py, kernels/sw_wave.py).
-MAX_BAND also bounds B5 and B6; a CUDA engine refuses wider bands.
+TPU has no vector gather; on the GPU the kernel keeps the score table in
+shared memory as int32, one copy per lane (no bank conflicts). One thread
+walks one alignment's rows with its diagonals' H and F in registers (G = 2
+or 4 lanes of 32 diagonals at bands above 32), E carried along the row, the
+recurrences in Hopper's DPX instructions and the best cell as a packed key
+H * 32 + (31 - k): bound by instruction issue, not bytes. The routing
+predicates stay the JAX package's: `fused_ok` (the engine's chunk sizing
+and path choice) and `build_packed_matrix` returning None, which is how a
+matrix outside the nibble range [-4, 11] (BLOSUM50, PAM30) is detected —
+those take the score-fed kernels B5/B6 (kernels/sw_scored.py,
+kernels/sw_wave.py). MAX_BAND also bounds B5 and B6; a CUDA engine refuses
+wider bands.
 
 Contract (equal to sw_xla.sw_banded(banded_scores_i8(...))): per alignment
 (score, i_end, b_end) int32 — max score, then min i, then min b; (-1, -1)
@@ -30,7 +35,10 @@ from ghostm_tpu_torch.ops.scoring import LOW
 
 UNROLL = 8
 NIBBLE_BIAS = 4  # packed nibble = score + 4; BLOSUM62 scores are in [-4, 11]
-MAX_BAND = 128   # csrc/sw_fused.cu: up to 4 diagonals per lane
+MAX_BAND = 128   # csrc/sw_fused.cu: up to 4 lanes of 32 diagonals
+# the kernel's best-cell key H * 32 + (31 - k) fits an int32 while
+# H <= 127 Lq < 2^26
+MAX_LQ = ((1 << 26) - 1) // 127
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +55,23 @@ def fused_ok(Lq: int, band: int) -> bool:
     at = -(-(A if A <= 256 else 128) // UNROLL) * UNROLL
     SH = int(-(-A // at) * at + 2 * h).bit_length()
     return 15 * Lq < (1 << (31 - SH))
+
+
+def check_kernel_args(Lq: int, band: int, gap_open: int,
+                      gap_extend: int) -> None:
+    """Raise ValueError for what the CUDA kernel does not take: an odd band
+    or one outside [16, MAX_BAND], a query longer than MAX_LQ, a negative
+    gap cost (diagonals past a band that is not a multiple of 32 are held
+    at a large negative value, which a negative cost could lift)."""
+    if band % 2 or band < 16 or band > MAX_BAND:
+        raise ValueError(f"CUDA fused SW needs an even band in [16, "
+                         f"{MAX_BAND}], got {band}")
+    if Lq > MAX_LQ:
+        raise ValueError(f"CUDA fused SW takes queries up to {MAX_LQ} "
+                         f"codes, got {Lq}")
+    if gap_open < 0 or gap_extend < 0:
+        raise ValueError(f"CUDA fused SW needs gap costs >= 0, got "
+                         f"{gap_open}/{gap_extend}")
 
 
 def build_packed_matrix(matrix: np.ndarray) -> Tuple[Optional[tuple], int]:
@@ -102,20 +127,21 @@ def sw_fused_plain(qcodes, windows, matrix, rel_lo, rel_hi, gap_open: int,
 
 def sw_fused(qcodes: torch.Tensor, windows: torch.Tensor,
              matrix: torch.Tensor, rel_lo: torch.Tensor, rel_hi: torch.Tensor,
-             gap_open: int, gap_extend: int, band: int, code_limit: int = 23):
+             gap_open: int, gap_extend: int, band: int, code_limit: int = 23,
+             table: Optional[torch.Tensor] = None):
     """Batched banded SW, scores looked up in-kernel.
 
     qcodes (N, Lq) int8 query codes; windows (N, >= Lq + band) int8 window
     codes; matrix (32, 32) int32 padded scoring table; rel_lo/rel_hi (N,)
-    int32 subject span in window coordinates. Returns (score, i_end,
-    b_end), each (N,) int32."""
+    int32 subject span in window coordinates; table: score_table(matrix,
+    code_limit) on the device, built once by a caller that launches many
+    times (else built here, a few small launches each call). Returns
+    (score, i_end, b_end), each (N,) int32."""
     if qcodes.device.type == "cpu":
         return sw_fused_plain(qcodes, windows, matrix, rel_lo, rel_hi,
                               gap_open, gap_extend, band, code_limit)
     N, Lq = qcodes.shape
-    if band % 2 or band < 16 or band > MAX_BAND:
-        raise ValueError(f"CUDA fused SW needs an even band in [16, "
-                         f"{MAX_BAND}], got {band}")
+    check_kernel_args(Lq, band, gap_open, gap_extend)
     if windows.shape[0] != N or windows.shape[1] < Lq + band:
         raise ValueError("windows must be (N, >= Lq + band)")
     for x, dt in ((qcodes, torch.int8), (windows, torch.int8),
@@ -125,7 +151,12 @@ def sw_fused(qcodes: torch.Tensor, windows: torch.Tensor,
                              f"{qcodes.device}, got {x.dtype} on {x.device}")
     if rel_lo.shape != (N,) or rel_hi.shape != (N,):
         raise ValueError("rel_lo/rel_hi must be (N,)")
-    table = score_table(matrix.to(qcodes.device), code_limit).contiguous()
+    if table is None:
+        table = score_table(matrix.to(qcodes.device), code_limit)
+    if (table.dtype != torch.int8 or table.shape != (32, 32)
+            or not table.is_contiguous() or table.device != qcodes.device):
+        raise ValueError("sw_fused table: want a contiguous (32, 32) int8 "
+                         f"tensor on {qcodes.device} from score_table")
     out = torch.empty((3, N), dtype=torch.int32, device=qcodes.device)
     if N == 0:
         return out[0], out[1], out[2]

@@ -183,13 +183,12 @@ def test_lex_rank_kernel(dev, q, m, nk, nops, topk):
     assert torch.equal(got, S.lex_rank_rows_plain(ops, nk, topk))
 
 
-@pytest.mark.parametrize("n,lq,band", [
-    (4096, 40, 32), (1000, 40, 16), (513, 24, 64), (300, 96, 32),
-    (200, 40, 128), (100, 300, 48), (64, 40, 18),
-])
-def test_sw_fused_kernel(dev, n, lq, band):
-    gen = torch.Generator().manual_seed(n + lq + band)
-    mat = torch.from_numpy(padded_matrix().astype(np.int32)).to(dev)
+def _fused_inputs(gen, n, lq, band, kind):
+    """Related and unrelated pairs (the earlier cases, kind "rand"), or:
+    "repeat" (one code in query and window, every cell live in half the
+    rows: equal maxima everywhere), "periodic" (query and window of one
+    period-6 pattern: ties across diagonals), "copied" (the query copied
+    into the window twice)."""
     q = torch.randint(0, 26, (n, lq), generator=gen, dtype=torch.int8)
     w = torch.randint(0, 26, (n, lq + band + 3), generator=gen,
                       dtype=torch.int8)
@@ -197,13 +196,60 @@ def test_sw_fused_kernel(dev, n, lq, band):
     lo = torch.randint(-4, 8, (n,), generator=gen, dtype=torch.int32)
     hi = torch.randint(lq // 2, lq + band + 4, (n,), generator=gen,
                        dtype=torch.int32)
-    q, w, lo, hi = (t.to(dev) for t in (q, w, lo, hi))
+    if kind == "repeat":
+        q[:], w[:] = 18, 18
+        lo[::2], hi[::2] = -4, lq + band + 4
+    elif kind == "periodic":
+        pat = torch.randint(0, 20, (n, 6), generator=gen, dtype=torch.int8)
+        q = pat.repeat(1, -(-lq // 6))[:, :lq].contiguous()
+        w = pat.repeat(1, -(-(lq + band + 6) // 6))[:, 3:lq + band + 6]
+        w = w.contiguous()
+    elif kind == "copied":
+        half = band // 2
+        w[:, 1:1 + lq] = q
+        w[:, 1 + half:1 + half + lq] = q
+    return q, w, lo, hi
+
+
+@pytest.mark.parametrize("n,lq,band,kind,matrix", [
+    # the earlier cases, their ids unchanged
+    *(pytest.param(*c, "rand", "BLOSUM62", id="-".join(map(str, c)))
+      for c in ((4096, 40, 32), (1000, 40, 16), (513, 24, 64), (300, 96, 32),
+                (200, 40, 128), (100, 300, 48), (64, 40, 18))),
+    # one alignment; a warp and one; not a multiple of the block (512
+    # alignments at band <= 32, 256 at 64, 128 at 128)
+    (1, 40, 32, "rand", "BLOSUM62"), (33, 40, 32, "rand", "BLOSUM62"),
+    (777, 40, 32, "rand", "BLOSUM62"), (300, 40, 64, "rand", "BLOSUM62"),
+    (130, 40, 128, "rand", "BLOSUM62"), (1, 24, 96, "rand", "BLOSUM62"),
+    # ties, at one lane and across lanes
+    (512, 40, 32, "repeat", "BLOSUM62"), (512, 40, 32, "periodic", "BLOSUM62"),
+    (512, 40, 32, "copied", "BLOSUM62"), (256, 40, 64, "repeat", "BLOSUM62"),
+    (256, 40, 64, "periodic", "BLOSUM62"),
+    (128, 40, 128, "copied", "BLOSUM62"),
+    (200, 41, 18, "repeat", "BLOSUM62"), (200, 37, 80, "periodic", "BLOSUM62"),
+    # BLOSUM50's table (values up to 15), as chip_smoke times it
+    (4096, 40, 32, "rand", "BLOSUM50"), (300, 96, 32, "rand", "BLOSUM50"),
+    (200, 300, 128, "rand", "BLOSUM50"), (200, 40, 18, "periodic", "BLOSUM50"),
+])
+def test_sw_fused_kernel(dev, n, lq, band, kind, matrix):
+    gen = torch.Generator().manual_seed(n + lq + band)
+    mat = torch.from_numpy(padded_matrix(matrix).astype(np.int32)).to(dev)
+    climit = sw_fused.build_packed_matrix(padded_matrix(matrix,
+                                                        hard_stop=True))[1]
+    go, ge = (11, 1) if matrix == "BLOSUM62" else (13, 2)
+    q, w, lo, hi = (t.to(dev) for t in _fused_inputs(gen, n, lq, band, kind))
     got = _launched("sw_fused", lambda: sw_fused.sw_fused(
-        q, w, mat, lo, hi, 11, 1, band, 23))
-    want = sw_fused.sw_fused_plain(q, w, mat, lo, hi, 11, 1, band, 23)
+        q, w, mat, lo, hi, go, ge, band, climit))
+    want = sw_fused.sw_fused_plain(q, w, mat, lo, hi, go, ge, band, climit)
     for g, x in zip(got, want):
         assert torch.equal(g, x)
     assert int(got[0].max()) > 0
+    # the table built once by the caller, as the engine passes it
+    tab = sw_fused.score_table(mat, climit)
+    again = _launched("sw_fused", lambda: sw_fused.sw_fused(
+        q, w, mat, lo, hi, go, ge, band, climit, table=tab))
+    for g, x in zip(again, want):
+        assert torch.equal(g, x)
 
 
 def _score_tile(gen, n, lq, band, dtype, dev):

@@ -3,8 +3,9 @@ SearchEngine(use_pallas=False) on the same random index: the packed
 (6, R, K) output of search_refine_async_dna must be equal, with the index
 loaded through disk and through index_from_arrays, on every align route
 (fused B3, score-fed rows B5, score-fed wave B6). Also the device
-translation, the score-fed chunking, the CUDA band limit and the port's
-pipeline checkpoint/resume. Tolerance 0."""
+translation, the score-fed chunking, the CUDA band limit, B3's score table
+built once, the gap-cost check and the port's pipeline checkpoint/resume.
+Tolerance 0."""
 
 import os
 import sys
@@ -172,6 +173,34 @@ def test_engine_requires_cuda_unless_cpu(case, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tengine.SearchEngine(TConfig(**kw), tdiskio.index_from_arrays(jidx))
+
+
+def test_engine_builds_fused_table_once(case, monkeypatch):
+    """B3's score table is built at engine init and handed to every fused
+    call; the output is unchanged."""
+    from ghostm_tpu_torch.kernels import sw_fused
+
+    kw, prefix, jidx, want, dna, lens = case
+    tables = []
+    fn = sw_fused.sw_fused
+    monkeypatch.setattr(sw_fused, "sw_fused", lambda *a, **k: (
+        tables.append(k["table"]), fn(*a, **k))[1])
+    eng = tengine.SearchEngine(TConfig(**kw), tdiskio.index_from_arrays(jidx),
+                               device="cpu")
+    assert torch.equal(eng.fused_table,
+                       sw_fused.score_table(eng.matrix, eng.code_limit))
+    got = tengine.SearchEngine.fetch(eng.search_refine_async_dna(dna, lens))
+    np.testing.assert_array_equal(got, want)
+    assert tables and all(t is eng.fused_table for t in tables)
+
+
+@pytest.mark.parametrize("gap_open,gap_extend", [(-1, 1), (11, -1)])
+def test_config_rejects_negative_gap_costs(gap_open, gap_extend):
+    """On every device, before the Karlin-Altschul lookup could be skipped
+    by explicit constants: B3 takes gap costs >= 0 only."""
+    with pytest.raises(ValueError, match="must be >= 0"):
+        TConfig(gap_open=gap_open, gap_extend=gap_extend, ka_lambda=0.3,
+                ka_k=0.1)
 
 
 def test_translate_torch_matches_jax_and_host(rng):

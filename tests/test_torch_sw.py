@@ -23,13 +23,34 @@ MAT = padded_matrix(hard_stop=True)
 GO, GE = 11, 1
 
 
-def _case(seed, n, lq, band):
+def _case(seed, n, lq, band, kind="rand"):
+    """Random codes, spans inside the window (the earlier cases), or a kind
+    that stresses the kernel: "repeat" (one code in query and window: equal
+    maxima everywhere), "periodic" (query and window of one period-6
+    pattern: ties across diagonals), "copied" (the query copied into the
+    window twice), "span" (rel_lo < 0, rel_hi past Lq + band)."""
     rng = np.random.default_rng(seed)
     # codes include stop(23)/sentinel(24)/pad(25) to exercise masking
     qs = rng.integers(0, 26, (n, lq)).astype(np.int8)
     ws = rng.integers(0, 26, (n, lq + band)).astype(np.int8)
     lo = rng.integers(0, 8, n).astype(np.int32)
     hi = rng.integers(lq // 2, lq + band, n).astype(np.int32)
+    if kind == "repeat":
+        qs[:] = 18                       # W: 11 against itself
+        ws[:] = 18
+        lo[::2], hi[::2] = 0, lq + band  # every cell live in half the rows
+    elif kind == "periodic":
+        pat = rng.integers(0, 20, (n, 6)).astype(np.int8)
+        qs[:] = np.tile(pat, -(-lq // 6))[:, :lq]
+        ws[:] = np.tile(pat, -(-(lq + band + 3) // 6))[:, 3:3 + lq + band]
+    elif kind == "copied":
+        for r in range(n):
+            d = int(rng.integers(0, band // 2))
+            ws[r, d:d + lq] = qs[r]
+            ws[r, d + band // 2:d + band // 2 + lq] = qs[r]
+    elif kind == "span":
+        lo = rng.integers(-4, 8, n).astype(np.int32)
+        hi = rng.integers(lq // 2, lq + band + 5, n).astype(np.int32)
     return qs, ws, lo, hi
 
 
@@ -39,11 +60,17 @@ def _port(qs, ws, lo, hi, band, climit):
                            t(hi), GO, GE, band, code_limit=climit)
 
 
-@pytest.mark.parametrize("seed,n,lq,band", [
-    (0, 128, 40, 32), (3, 128, 40, 16), (5, 128, 24, 64),
+@pytest.mark.parametrize("seed,n,lq,band,kind", [
+    # the earlier cases, their ids unchanged
+    *(pytest.param(*c, "rand", id="-".join(map(str, c)))
+      for c in ((0, 128, 40, 32), (3, 128, 40, 16), (5, 128, 24, 64))),
+    (7, 128, 40, 32, "repeat"), (8, 128, 40, 32, "periodic"),
+    (9, 128, 40, 32, "copied"), (10, 128, 40, 32, "span"),
+    (11, 128, 24, 64, "periodic"), (12, 128, 40, 128, "rand"),
+    (13, 128, 40, 18, "rand"), (14, 128, 96, 32, "rand"),
 ])
-def test_fused_plain_matches_jax(seed, n, lq, band):
-    qs, ws, lo, hi = _case(seed, n, lq, band)
+def test_fused_plain_matches_jax(seed, n, lq, band, kind):
+    qs, ws, lo, hi = _case(seed, n, lq, band, kind)
     words, climit = jfused.build_packed_matrix(MAT)
     got = _port(qs, ws, lo, hi, band, climit)
     j = lambda a: jnp.asarray(a.astype(np.int32))
@@ -55,6 +82,20 @@ def test_fused_plain_matches_jax(seed, n, lq, band):
     for g, f, r in zip(got, fused, ref):
         np.testing.assert_array_equal(g.numpy(), np.asarray(f))
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    assert int(got[0].max()) > 0
+
+
+def test_kernel_args_check():
+    """The CUDA wrapper's input check (a pure predicate: no card needed)."""
+    tfused.check_kernel_args(40, 32, 11, 1)
+    tfused.check_kernel_args(tfused.MAX_LQ, 128, 0, 0)
+    assert 127 * tfused.MAX_LQ * 32 + 31 < 1 << 31
+    assert 127 * (tfused.MAX_LQ + 1) * 32 + 31 >= 1 << 31
+    for lq, band, go, ge in ((40, 14, 11, 1), (40, 33, 11, 1),
+                             (40, 130, 11, 1), (tfused.MAX_LQ + 1, 32, 11, 1),
+                             (40, 32, -1, 1), (40, 32, 11, -1)):
+        with pytest.raises(ValueError):
+            tfused.check_kernel_args(lq, band, go, ge)
 
 
 def test_fused_plain_empty_and_allmasked():
