@@ -13,8 +13,10 @@ Phases, each printing one JSON line ({"phase": ...}):
            times of the kernel, the plain version, torch.sort as B1's
            yardstick, and the least time the card could take (bound_ms);
            the SW rows also give the instructions a cell their time
-           implies, and B3's and B5's rows their device time without the
-           wrapper's host work (device_ms);
+           implies and their device time without the wrapper's host work
+           (device_ms); B5 and B6 at the engine's score-fed shape (one
+           launch a batch, from the codes), B5 also on the int32 tile
+           route (band 24);
   golden   `db` + `aln --batch 128` through the port's CLI on CUDA over
            tests/golden/config1_*, byte-compared with the golden table;
   golden_b50  the same index through `aln --matrix BLOSUM50 --gap-open 13
@@ -27,11 +29,11 @@ Phases, each printing one JSON line ({"phase": ...}):
            (1 warm + 5 timed), then the same batches through the
            pipeline writing m8; a 256-read batch cross-checked against the
            same engine on device="cpu";
-  scale_b50  the same index and reads scored with BLOSUM50 13/2 (B5 by
-           rows; 1 warm + 3 timed batches, a stage breakdown, the 256-read
-           CPU cross-check);
+  scale_b50  the same index and reads scored with BLOSUM50 13/2 (the
+           score-fed route, B5; 1 warm + 3 timed batches, a stage
+           breakdown, the 256-read CPU cross-check);
   scale_b50_250bp  the same index, BLOSUM50 13/2, 250 bp reads in
-           88-residue frames (B6, the wavefront; its own key table).
+           88-residue frames (B6's route; its own key table).
 The launch counters are set to 0 just before each main-path run (each
 golden aln and each scale leg's timed run) and read just after; every
 kernel of that path must have launched in its run. The wrappers also
@@ -163,8 +165,7 @@ def kernel_phase(dev):
     from ghostm_tpu_torch.kernels import sw_fused as F
     from ghostm_tpu_torch.kernels import sw_scored as SF
     from ghostm_tpu_torch.kernels import sw_wave as SW
-    from ghostm_tpu_torch.kernels import sw_xla as X
-    from ghostm_tpu_torch.ops.scoring import LOW, padded_matrix
+    from ghostm_tpu_torch.ops.scoring import padded_matrix
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -256,20 +257,26 @@ def kernel_phase(dev):
     # B3: config-2 align, 49152 frames x 8 candidates, Lq 40, band 32;
     # then band 64 (not on a main path: two lanes an alignment); the score
     # table built once, as the engine builds it
+    def pairs(N, Lq, B):
+        """Codes and window-local spans of N alignments, half the pairs
+        related (the query in the window): real alignments."""
+        q = torch.randint(0, 26, (N, Lq), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(0, 26, (N, Lq + B), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w[::2, 8:8 + Lq] = q[::2]
+        lo = torch.randint(0, 8, (N,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        hi = torch.randint(Lq // 2, Lq + B, (N,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        return q, w, lo, hi
+
     mat = torch.from_numpy(padded_matrix("BLOSUM62").astype(np.int32)).to(dev)
     tab = F.score_table(mat, 23)
     for N, Lq, B, launch in ((393_216, 40, 32, ("scale", "sw_fused",
                                                  (393_216, 40))),
                              (393_216, 40, 64, None)):
-        q = torch.randint(0, 26, (N, Lq), generator=gen, device=dev,
-                          dtype=torch.int8)
-        w = torch.randint(0, 26, (N, Lq + B), generator=gen, device=dev,
-                          dtype=torch.int8)
-        w[::2, 8:8 + Lq] = q[::2]   # half the pairs related: real alignments
-        lo = torch.randint(0, 8, (N,), generator=gen, device=dev,
-                           dtype=torch.int32)
-        hi = torch.randint(Lq // 2, Lq + B, (N,), generator=gen, device=dev,
-                           dtype=torch.int32)
+        q, w, lo, hi = pairs(N, Lq, B)
         run("B3 sw_fused" + ("" if B == 32 else f" (band {B})"),
             "ghostm_tpu_torch/csrc/sw_fused.cu",
             "ghostm_tpu/kernels/sw_fused.py:129",
@@ -291,74 +298,35 @@ def kernel_phase(dev):
         None, ops.numel() * 4 + nops * R * 10 * 4, R * 21 * 32 * 26,
         "26 per compare-exchange (6 compares + 20 moves), 21 passes at L=64",
         launch=("scale", "lex_rank_rows", (nops, R, M)))
-    # B5 / B6: the score-fed chunks the engine launches at config-2-true
-    # with BLOSUM50 (8192 alignments a chunk), from related and unrelated
-    # pairs as for B3; bound: the tile read once + 3 outputs, 12 ops a cell
+    # B5 / B6: the score-fed route at config-2-true with BLOSUM50, one
+    # launch over a batch's 49152 frames x 8 candidates, from the codes and
+    # the code table the engine builds once (its largest value passed in);
+    # the plain version builds the route's score tile and runs the
+    # tile-fed plain SW; then B5 on the int32 tile route (band 24: not on a
+    # main path)
     mat50 = torch.from_numpy(padded_matrix("BLOSUM50").astype(np.int32)
                              ).to(dev)
-    climit50 = F.build_packed_matrix(padded_matrix("BLOSUM50",
-                                                   hard_stop=True))[1]
-
-    def pairs(n, lq, band):
-        q = torch.randint(0, 26, (n, lq), generator=gen, device=dev,
-                          dtype=torch.int8)
-        w = torch.randint(0, 26, (n, lq + band), generator=gen, device=dev,
-                          dtype=torch.int8)
-        w[::2, 8:8 + lq] = q[::2]
-        lo = torch.randint(0, 8, (n,), generator=gen, device=dev,
-                           dtype=torch.int32)
-        hi = torch.randint(lq // 2, lq + band, (n,), generator=gen,
-                           device=dev, dtype=torch.int32)
-        return q, w, lo, hi
-
-    def tile(q, w, lo, hi, band, int8):
-        if int8:
-            return X.banded_scores_i8(q, w, mat50, band,
-                                      torch.zeros_like(lo), lo, hi)
-        sc = X.banded_scores(q, w, mat50, band)
-        inb = X.in_span(torch.zeros_like(lo), lo, hi, q.shape[1], band)
-        return torch.where(inb, sc, torch.full_like(sc, LOW))
-
-    N, Lq, B = 8192, 40, 32
-    q, w, lo, hi = pairs(N, Lq, B)
-    sc = tile(q, w, lo, hi, B, True)
-    # B3 on the same alignments and matrix: its int8 table holds
-    # BLOSUM50's [-5, 15]; a yardstick only, no route changes
-    tab50 = F.score_table(mat50, climit50)
-    fused = lambda: F.sw_fused(q, w, mat50, lo, hi, 13, 2, B, climit50,
-                               table=tab50)
-    same = max_err(fused(), SF.sw_banded_scored_plain(sc, 13, 2))
-    run("B5 sw_scored", "ghostm_tpu_torch/csrc/sw_scored.cu",
-        "ghostm_tpu/kernels/sw_pallas.py:57",
-        lambda: SF.sw_banded_scored(sc, 13, 2),
-        lambda: SF.sw_banded_scored_plain(sc, 13, 2),
-        None, sc.numel() + 3 * N * 4, 12 * N * Lq * B,
-        "12 int32 ops per DP cell", shape=[N, Lq, B], dtype="int8",
-        launch=("scale_b50", "sw_scored", (N, Lq, B)), cells=N * Lq * B,
-        device_ms=True, fused_same_work_ms=time_ms(fused, 20, flush),
-        fused_same_work_device_ms=time_ms(fused, 20, flush, device_only=True),
-        fused_same_work_max_abs_err=same)
-    N, Lq, B = 8192, 40, 24
-    q, w, lo, hi = pairs(N, Lq, B)
-    sc = tile(q, w, lo, hi, B, False)
-    run("B5 sw_scored (int32 tiles)", "ghostm_tpu_torch/csrc/sw_scored.cu",
-        "ghostm_tpu/kernels/sw_pallas.py:57",
-        lambda: SF.sw_banded_scored(sc, 13, 2),
-        lambda: SF.sw_banded_scored_plain(sc, 13, 2),
-        None, sc.numel() * 4 + 3 * N * 4, 12 * N * Lq * B,
-        "12 int32 ops per DP cell", shape=[N, Lq, B], dtype="int32",
-        cells=N * Lq * B)
-    N, Lq, B = 8192, 88, 32
-    q, w, lo, hi = pairs(N, Lq, B)
-    sc = tile(q, w, lo, hi, B, True)
-    run("B6 sw_wave", "ghostm_tpu_torch/csrc/sw_wave.cu",
-        "ghostm_tpu/kernels/sw_wave.py:75",
-        lambda: SW.sw_banded_wave(sc, 13, 2),
-        lambda: SW.sw_banded_wave_plain(sc, 13, 2),
-        None, sc.numel() + 3 * N * 4, 12 * N * Lq * B,
-        "12 int32 ops per DP cell", shape=[N, Lq, B], dtype="int8",
-        launch=("scale_b50_250bp", "sw_wave", (N, Lq, B)), cells=N * Lq * B)
-    del x, k1, keys, a, b, q, w, lo, hi, sc, ops, flush
+    b5 = (SF.sw_scored_codes, SF.sw_scored_codes_plain,
+          "ghostm_tpu/kernels/sw_pallas.py:57")
+    b6 = (SW.sw_wave_codes, SW.sw_wave_codes_plain,
+          "ghostm_tpu/kernels/sw_wave.py:75")
+    for name, (kern, plain, replaces), Lq, B, launch in (
+            ("B5 sw_scored", b5, 40, 32, ("scale_b50", "sw_scored")),
+            ("B6 sw_wave", b6, 88, 32, ("scale_b50_250bp", "sw_wave")),
+            ("B5 sw_scored (int32 tile route)", b5, 40, 24, None)):
+        N = 393_216
+        q, w, lo, hi = pairs(N, Lq, B)
+        tab = SF.code_table(mat50, B)
+        tmax = int(tab.max())
+        run(name, "ghostm_tpu_torch/csrc/sw_scored.cu", replaces,
+            lambda: kern(q, w, tab, lo, hi, 13, 2, B, table_max=tmax),
+            lambda: plain(q, w, tab, lo, hi, 13, 2, B),
+            None, N * (Lq + Lq + B + 8 + 12), 12 * N * Lq * B,
+            "12 int32 ops per DP cell", shape=[N, Lq, B],
+            tile_route="int8" if B % 32 == 0 else "int32",
+            launch=(*launch, (N, Lq, B)) if launch else None,
+            cells=N * Lq * B, device_ms=True)
+    del x, k1, keys, a, b, q, w, lo, hi, tab, ops, flush
     torch.cuda.empty_cache()
     return entries
 
@@ -643,7 +611,8 @@ def score_fed_leg(tag: str, cfg, index, batches, kernel: str,
                   key_table=None):
     """One BLOSUM50 leg on the config-2-true index: engine init, the timed
     run (the launch counters set to 0 just before it), a stage breakdown
-    and the 256-read CPU cross-check. `kernel` must launch, B3 must not."""
+    and the 256-read CPU cross-check. `kernel` must launch once a batch,
+    B3 never."""
     from ghostm_tpu_torch.engine import SearchEngine
 
     t0 = time.time()
@@ -653,8 +622,7 @@ def score_fed_leg(tag: str, cfg, index, batches, kernel: str,
     launches, shapes, per_batch, wall, last, peak = timed_run(eng, batches)
     n = cfg.query_batch * (len(batches) - 1)
     same, xhits = crosscheck(eng, index, batches[1])
-    emit(phase=tag, route=eng.route, chunk=eng.chunk,
-         query_frame_len=cfg.query_frame_len,
+    emit(phase=tag, route=eng.route, query_frame_len=cfg.query_frame_len,
          read_len=int(batches[1][1].shape[1]), engine_init_s=t_engine,
          reads=n, wall_s=wall, reads_per_s=n / wall, batch_ms=per_batch,
          max_memory_allocated=peak, launches=launches,
@@ -662,8 +630,10 @@ def score_fed_leg(tag: str, cfg, index, batches, kernel: str,
          shape_launches=shape_counts(shapes),
          hits=int(((last[1] >> 15) > 0).sum()), crosscheck_reads=256,
          crosscheck_equal=same, crosscheck_hits=xhits)
-    if launches[kernel] == 0:
-        raise SystemExit(f"{tag}: kernel {kernel} was never launched")
+    if launches[kernel] != len(batches) - 1:
+        raise SystemExit(f"{tag}: kernel {kernel} launched "
+                         f"{launches[kernel]} times in {len(batches) - 1} "
+                         "batches, not once a batch")
     if launches["sw_fused"]:
         raise SystemExit(f"{tag}: the fused kernel B3 was launched")
     if not (last[1] >> 15).max() > 0:

@@ -6,7 +6,7 @@ given, and fails without a GPU. `--pallas`/`--no-pallas` are accepted and
 ignored (a CUDA run always launches the kernels, a CPU run their plain
 versions), so the JAX package's command lines carry over. Every
 `--matrix`, gap cost and `--band` of the JAX package runs (a CUDA run takes
-bands up to 128). The mesh and multi-process flags, `--check`,
+bands up to 128 and gap costs >= 0). The mesh and multi-process flags, `--check`,
 `--debug-nans`, `--profile`, `--cpu` and `--chain-gamma > 0` are not ported
 yet and are rejected.
 """

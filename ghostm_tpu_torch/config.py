@@ -94,9 +94,6 @@ class Config:
             raise ValueError("seed_len must be in [2, 5]")
         if self.sentinel_pad < self.seed_len:
             raise ValueError("sentinel_pad must be >= seed_len")
-        if self.gap_open < 0 or self.gap_extend < 0:
-            # on every device: the CUDA SW kernel B3 takes costs >= 0 only
-            raise ValueError("gap_open and gap_extend must be >= 0")
         self.ka_params()  # reject unknown (matrix, gap) combos early
 
     def ka_params(self):

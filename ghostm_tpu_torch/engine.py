@@ -6,10 +6,11 @@ One batch of raw DNA reads runs, on the engine's device:
   2. PROPOSE: k-mer keys -> one direct-table row gather per k-mer -> per
      query frame a sort, run-length vote and top-ncand (kernels B1, B2);
   3. SELECT: the identity with one shard;
-  4. ALIGN: window fetch + banded SW (`score_fed_route`): with in-kernel
-     scores (kernel B3) for matrices in the fused kernel's nibble range
-     where `fused_ok` holds; else on score tiles built in plain torch, in
-     chunks, by rows (kernel B5) or as a wavefront (kernel B6);
+  4. ALIGN: window fetch + banded SW from the codes and a score table
+     built once per engine: kernel B3 for matrices in the fused kernel's
+     nibble range where `fused_ok` holds, else the score-fed route
+     (`score_fed_route`: kernel B5, or B6 at long frames), one launch a
+     batch; their plain versions build score tiles, in chunks;
   5. RANK: per read the top max_hits by (-score, gsid, frame, qend, s_end)
      with the original position as the final tie-break (kernel B4);
   6. REFINE: moves DP + traceback for the ranked hits (plain torch);
@@ -21,7 +22,7 @@ package's engine.
 Not ported yet (NotImplementedError at init): indexes that do not fit the
 direct seed-table layout (aligned/CSR modes), more than one shard,
 smooth_bins and chain_gamma > 0. A CUDA engine also refuses bands above
-128, the widest its SW kernels take.
+128, the widest its SW kernels take, and negative gap costs.
 
 Pitfalls of the translation from JAX, handled below:
   * gathers: JAX clamps an out-of-range gather index silently; torch
@@ -257,21 +258,6 @@ def score_fed_route(Lq: int, band: int) -> str:
     return "wave" if use_wave else "rows"
 
 
-def score_fed_chunk(qc, w, g0c, loc, hic, matrix, *, band: int,
-                    gap_open: int, gap_extend: int, route: str):
-    """One chunk of the score-fed align path: the (n, Lq, band) score tile
-    in plain torch (the XLA side of the JAX engine), then B5 or B6."""
-    if band % 32 == 0:
-        sc = sw_xla.banded_scores_i8(qc, w, matrix, band, g0c, loc, hic)
-    else:
-        sc = sw_xla.banded_scores(qc, w, matrix, band)
-        sc = torch.where(sw_xla.in_span(g0c, loc, hic, qc.shape[1], band),
-                         sc, torch.full_like(sc, LOW))
-    if route == "wave":
-        return sw_wave.sw_banded_wave(sc, gap_open, gap_extend)
-    return sw_scored.sw_banded_scored(sc, gap_open, gap_extend)
-
-
 def align_shard(
     qflat: torch.Tensor,       # (Qf, Lq) int8
     buffer: torch.Tensor,      # lead-padded shard buffer, int8
@@ -289,19 +275,24 @@ def align_shard(
     srow_identity: int,
     route: str = "fused",
     chunk: int = 8192,
-    fused_table: torch.Tensor | None = None,
+    table: torch.Tensor | None = None,
+    table_max: int | None = None,
 ):
     """Returns (score, qend, bend, s_end, g0, srow, owned), each (Qf, C);
-    score is 0 for candidates this shard does not own. fused_table: B3's
-    score_table(matrix, code_limit), when the caller keeps one.
+    score is 0 for candidates this shard does not own. table: the route's
+    score table when the caller keeps one (B3's sw_fused.score_table, or
+    sw_scored.code_table for the score-fed route), table_max its largest
+    value.
 
     srow_identity = S: the caller guarantees subject_ids[:S] == arange(S)
     (every one-shard index), so the gsid -> row map is the identity.
 
     route (engine.py:698-759 of the JAX package): "fused" runs B3 on the
-    codes in one call; "rows" (B5) and "wave" (B6) run on score tiles built
-    `chunk` alignments at a time — int8 masked tiles when band % 32 == 0,
-    else int32 tiles with LOW outside the subject span."""
+    codes in one call; "rows" (B5) and "wave" (B6) run on the codes and
+    the code table in one call on CUDA. Their plain versions build the
+    JAX engine's score tiles (int8 masked tiles when band % 32 == 0, else
+    int32 tiles with LOW outside the subject span), so on the CPU they go
+    `chunk` alignments at a time."""
     Qf, Lq = qflat.shape
     C = sel_gsid.shape[1]
     S = starts.shape[0]
@@ -322,21 +313,25 @@ def align_shard(
     qrep = qflat.to(torch.int8).repeat_interleave(C, dim=0)
     g0f = g0.reshape(N)
     w = fetch_windows(buffer, g0f, lead, Lq + band)
+    rel_lo = (lo.reshape(N) - g0f).contiguous()
+    rel_hi = (hi.reshape(N) - g0f).contiguous()
     if route == "fused":
         s, ie, be = sw_fused.sw_fused(
-            qrep, w, matrix, (lo.reshape(N) - g0f).contiguous(),
-            (hi.reshape(N) - g0f).contiguous(), gap_open, gap_extend, band,
-            code_limit=code_limit, table=fused_table,
+            qrep, w, matrix, rel_lo, rel_hi, gap_open, gap_extend, band,
+            code_limit=code_limit, table=table,
         )
     else:
-        lof, hif = lo.reshape(N), hi.reshape(N)
-        outs = [score_fed_chunk(qrep[c:c + chunk], w[c:c + chunk],
-                                g0f[c:c + chunk], lof[c:c + chunk],
-                                hif[c:c + chunk], matrix, band=band,
-                                gap_open=gap_open, gap_extend=gap_extend,
-                                route=route)
-                for c in range(0, N, chunk)]
-        s, ie, be = (torch.cat(x) for x in zip(*outs))
+        sw = (sw_wave.sw_wave_codes if route == "wave"
+              else sw_scored.sw_scored_codes)
+        if table is None:
+            table = sw_scored.code_table(matrix, band)
+        step = N if qflat.is_cuda else chunk
+        outs = [sw(qrep[c:c + step], w[c:c + step], table,
+                   rel_lo[c:c + step], rel_hi[c:c + step], gap_open,
+                   gap_extend, band, table_max=table_max)
+                for c in range(0, N, step)]
+        s, ie, be = (outs[0] if len(outs) == 1
+                     else (torch.cat(x) for x in zip(*outs)))
     score = s.reshape(Qf, C)
     score = torch.where(owned & (score > 0), score, zero)
     hit = score > 0
@@ -442,6 +437,14 @@ class SearchEngine:
                 f"band {cfg.band_width} is wider than the CUDA SW kernels "
                 f"take ({sw_fused.MAX_BAND})"
             )
+        if self.device.type == "cuda" and min(cfg.gap_open,
+                                              cfg.gap_extend) < 0:
+            # diagonals past a band that is not a multiple of 32 are held
+            # at a large negative value, which a negative cost could lift
+            raise NotImplementedError(
+                f"gap costs {cfg.gap_open}/{cfg.gap_extend}: the CUDA SW "
+                "kernels take gap costs >= 0"
+            )
         if index.buffers.shape[0] != 1:
             raise NotImplementedError("indexes with more than one shard are "
                                       "not ported yet")
@@ -457,8 +460,9 @@ class SearchEngine:
             "fused" if words is not None and sw_fused.fused_ok(Lq, band)
             else score_fed_route(Lq, band)
         )
-        # score-fed chunk (the JAX engine's rule): a hard cap of 8192
-        # alignments and 128 MB of int32 score tile
+        # the score-fed plain versions' chunk on the CPU (the JAX engine's
+        # rule): a hard cap of 8192 alignments and 128 MB of int32 score
+        # tile; a CUDA launch takes the whole batch
         n_sw = cfg.query_batch * NFRAMES * cfg.candidates_per_frame
         mem_cap = max(128, (128 << 20) // (Lq * band * 4))
         self.chunk = max(128, min(8192, _round_up(n_sw, 128),
@@ -484,9 +488,14 @@ class SearchEngine:
         dev = self.device
         to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
         self.matrix = to(mat.astype(np.int32))
-        # B3's score table, once (the wrapper would build it every call)
-        self.fused_table = (sw_fused.score_table(self.matrix, self.code_limit)
-                            if self.route == "fused" else None)
+        # the align route's score table, once (a wrapper would build it, or
+        # read its largest value, every call)
+        self.sw_table = (
+            sw_fused.score_table(self.matrix, self.code_limit)
+            if self.route == "fused" else sw_scored.code_table(self.matrix,
+                                                               band)
+        )
+        self.sw_table_max = int(self.sw_table.max())
         self.buffer = to(pad_buffer(index.buffers[0], cfg))
         self.starts = to(index.starts[0].astype(np.int32))
         self.subject_ids = to(index.subject_ids[0].astype(np.int32))
@@ -516,7 +525,8 @@ class SearchEngine:
             sel_g, sel_b, band=cfg.band_width, gap_open=cfg.gap_open,
             gap_extend=cfg.gap_extend, lead=self.lead,
             code_limit=self.code_limit, srow_identity=self.srow_identity,
-            route=self.route, chunk=self.chunk, fused_table=self.fused_table,
+            route=self.route, chunk=self.chunk, table=self.sw_table,
+            table_max=self.sw_table_max,
         )
 
     def search_packed(self, qcodes3: torch.Tensor) -> torch.Tensor:

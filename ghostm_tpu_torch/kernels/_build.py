@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("sort_rows", "sort_vote", "merge_vote", "sw_fused", "lex_rank",
-           "sw_scored", "sw_wave")
+           "sw_scored")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -8,7 +8,8 @@ shared memory as int32, one copy per lane (no bank conflicts). One thread
 walks one alignment's rows with its diagonals' H and F in registers (G = 2
 or 4 lanes of 32 diagonals at bands above 32), E carried along the row, the
 recurrences in Hopper's DPX instructions and the best cell as a packed key
-H * 32 + (31 - k): bound by instruction issue, not bytes. The routing
+H * 32 + (31 - k): bound by instruction issue, not bytes. The DP
+(csrc/sw_common.cuh) is shared with B5 and B6 on another table. The routing
 predicates stay the JAX package's: `fused_ok` (the engine's chunk sizing
 and path choice) and `build_packed_matrix` returning None, which is how a
 matrix outside the nibble range [-4, 11] (BLOSUM50, PAM30) is detected —
@@ -72,6 +73,24 @@ def check_kernel_args(Lq: int, band: int, gap_open: int,
     if gap_open < 0 or gap_extend < 0:
         raise ValueError(f"CUDA fused SW needs gap costs >= 0, got "
                          f"{gap_open}/{gap_extend}")
+
+
+def check_code_inputs(qcodes, windows, rel_lo, rel_hi, band: int,
+                      who: str) -> None:
+    """Raise ValueError unless the code-fed SW kernels (B3, B5, B6) can
+    take these inputs: contiguous (N, Lq) int8 codes, (N, >= Lq + band)
+    int8 windows and (N,) int32 spans, all on one device."""
+    N, Lq = qcodes.shape
+    if windows.dim() != 2 or windows.shape[0] != N \
+            or windows.shape[1] < Lq + band:
+        raise ValueError(f"{who}: windows must be (N, >= Lq + band)")
+    for x, dt in ((qcodes, torch.int8), (windows, torch.int8),
+                  (rel_lo, torch.int32), (rel_hi, torch.int32)):
+        if x.dtype != dt or not x.is_contiguous() or x.device != qcodes.device:
+            raise ValueError(f"{who} inputs: want contiguous {dt} on "
+                             f"{qcodes.device}, got {x.dtype} on {x.device}")
+    if rel_lo.shape != (N,) or rel_hi.shape != (N,):
+        raise ValueError(f"{who}: rel_lo/rel_hi must be (N,)")
 
 
 def build_packed_matrix(matrix: np.ndarray) -> Tuple[Optional[tuple], int]:
@@ -142,15 +161,7 @@ def sw_fused(qcodes: torch.Tensor, windows: torch.Tensor,
                               gap_open, gap_extend, band, code_limit)
     N, Lq = qcodes.shape
     check_kernel_args(Lq, band, gap_open, gap_extend)
-    if windows.shape[0] != N or windows.shape[1] < Lq + band:
-        raise ValueError("windows must be (N, >= Lq + band)")
-    for x, dt in ((qcodes, torch.int8), (windows, torch.int8),
-                  (rel_lo, torch.int32), (rel_hi, torch.int32)):
-        if x.dtype != dt or not x.is_contiguous() or x.device != qcodes.device:
-            raise ValueError(f"sw_fused inputs: want contiguous {dt} on "
-                             f"{qcodes.device}, got {x.dtype} on {x.device}")
-    if rel_lo.shape != (N,) or rel_hi.shape != (N,):
-        raise ValueError("rel_lo/rel_hi must be (N,)")
+    check_code_inputs(qcodes, windows, rel_lo, rel_hi, band, "sw_fused")
     if table is None:
         table = score_table(matrix.to(qcodes.device), code_limit)
     if (table.dtype != torch.int8 or table.shape != (32, 32)

@@ -1,22 +1,30 @@
-"""Kernel B6: banded Smith-Waterman on a precomputed score tile as an
-anti-diagonal wavefront (csrc/sw_wave.cu), beside its plain PyTorch version.
+"""Kernel B6: the score-fed route's banded Smith-Waterman at frames of 64
+residues and more, from the codes and an int32 score table (the
+ghostm_sw_wave entry of csrc/sw_scored.cu), beside its plain PyTorch
+version, an anti-diagonal wavefront on the score tile.
 
 Counterpart of the JAX package's kernels/sw_wave.py (`sw_banded_wave`, the
-Pallas kernel `_wave_kernel`): the engine's score-fed align path at frames
-of 64 residues and more (`engine.score_fed_route`). Same function and
-contract as B5 (kernels/sw_scored.py); the input checks are the JAX
-entry's: an even band >= 16, and Lq within its packed best-cell bound.
+Pallas kernel `_wave_kernel`), the route `engine.score_fed_route` names
+"wave". Same inputs, function and contract as B5 (kernels/sw_scored.py);
+the input checks are the JAX entry's: an even band >= 16, and Lq within
+its packed best-cell bound. The TPU needed the wavefront because a row
+tile could not carry the in-row E dependency without a prefix scan; on the
+card one thread walks an alignment's rows with E in a register, so B6's
+entry runs B5's DP (csrc/sw_common.cuh) and keeps its own C entry and
+launch count.
 
-The wavefront: the band's diagonals pair up as (2m, 2m + 1); at step a both
-sit at row a - m. A step advances the evens from the odds' carried state,
-then the odds from the new evens, so each Gotoh dependency is the same
-pair or a neighbouring one and no in-row prefix scan is needed. The TPU
-kernel fed it pre-skewed slabs (`skew_tiles`); the plain version and the
-CUDA kernel index the unskewed tile, reading the mask value outside rows
+The plain version's wavefront: the band's diagonals pair up as (2m, 2m + 1);
+at step a both sit at row a - m. A step advances the evens from the odds'
+carried state, then the odds from the new evens, so each Gotoh dependency
+is the same pair or a neighbouring one and no in-row prefix scan is
+needed. The TPU kernel fed it pre-skewed slabs (`skew_tiles`); the plain
+version indexes the unskewed tile, reading the mask value outside rows
 [0, Lq).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -42,7 +50,7 @@ def check_wave(Lq: int, band: int) -> None:
     SH = pack_shift(Lq, band)
     if 15 * Lq >= (1 << (31 - SH)):
         raise ValueError(f"Lq={Lq} too long for packed best-tracking "
-                         f"(SH={SH}); use sw_banded_scored")
+                         f"(SH={SH}); use sw_scored_codes")
 
 
 def sw_banded_wave_plain(sc: torch.Tensor, gap_open: int, gap_extend: int):
@@ -91,15 +99,25 @@ def sw_banded_wave_plain(sc: torch.Tensor, gap_open: int, gap_extend: int):
     return sw_xla._finalize(bH, bI, B)
 
 
-def sw_banded_wave(sc: torch.Tensor, gap_open: int, gap_extend: int):
-    """Batched banded SW on a score tile by the wavefront (see the module
-    docstring). A CPU tile runs the plain version; a CUDA tile launches
-    kernel B6."""
-    if sc.dim() != 3:
-        raise ValueError(f"sw_banded_wave: want an (N, Lq, B) tile, got "
-                         f"{tuple(sc.shape)}")
-    check_wave(sc.shape[1], sc.shape[2])
-    if sc.device.type == "cpu":
-        return sw_banded_wave_plain(sc, gap_open, gap_extend)
-    sw_scored.check_tile(sc, "sw_banded_wave")
-    return sw_scored.launch("sw_wave", sc, gap_open, gap_extend)
+def sw_wave_codes_plain(qcodes, windows, table, rel_lo, rel_hi,
+                        gap_open: int, gap_extend: int, band: int):
+    """The plain version: the route's tile (sw_scored.tile_from_table),
+    then sw_banded_wave_plain."""
+    sc = sw_scored.tile_from_table(qcodes, windows, table, rel_lo, rel_hi,
+                                   band)
+    return sw_banded_wave_plain(sc, gap_open, gap_extend)
+
+
+def sw_wave_codes(qcodes: torch.Tensor, windows: torch.Tensor,
+                  table: torch.Tensor, rel_lo: torch.Tensor,
+                  rel_hi: torch.Tensor, gap_open: int, gap_extend: int,
+                  band: int, table_max: Optional[int] = None):
+    """Batched banded SW of the score-fed route at long frames: the inputs
+    and result of sw_scored.sw_scored_codes, after the JAX entry's checks.
+    CPU tensors run the plain version, CUDA tensors kernel B6."""
+    check_wave(qcodes.shape[1], band)
+    if qcodes.device.type == "cpu":
+        return sw_wave_codes_plain(qcodes, windows, table, rel_lo, rel_hi,
+                                   gap_open, gap_extend, band)
+    return sw_scored.launch("sw_wave", qcodes, windows, table, rel_lo,
+                            rel_hi, gap_open, gap_extend, band, table_max)

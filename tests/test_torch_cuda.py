@@ -13,7 +13,6 @@ import pytest
 import torch
 
 from ghostm_tpu_torch.kernels import _build, sw_fused, sw_scored, sw_wave
-from ghostm_tpu_torch.kernels import sw_xla
 from ghostm_tpu_torch.kernels import sort as S
 from ghostm_tpu_torch.ops.scoring import padded_matrix
 
@@ -252,58 +251,92 @@ def test_sw_fused_kernel(dev, n, lq, band, kind, matrix):
         assert torch.equal(g, x)
 
 
-def _score_tile(gen, n, lq, band, dtype, dev):
-    """(n, lq, band) BLOSUM50 tile of related and unrelated pairs: int8
-    masked (banded_scores_i8) or int32 with LOW outside the span."""
-    mat = torch.from_numpy(padded_matrix("BLOSUM50").astype(np.int32))
-    q = torch.randint(0, 26, (n, lq), generator=gen, dtype=torch.int8)
-    w = torch.randint(0, 26, (n, lq + band), generator=gen, dtype=torch.int8)
-    w[::2, 2:2 + lq] = q[::2]
-    g0 = torch.zeros(n, dtype=torch.int32)
-    lo = torch.randint(-4, 8, (n,), generator=gen, dtype=torch.int32)
-    hi = torch.randint(lq // 2, lq + band + 4, (n,), generator=gen,
-                       dtype=torch.int32)
-    if dtype == "int8":
-        sc = sw_xla.banded_scores_i8(q, w, mat, band, g0, lo, hi)
-    else:
-        sc = sw_xla.banded_scores(q, w, mat, band)
-        sc = torch.where(sw_xla.in_span(g0, lo, hi, lq, band), sc,
-                         torch.full_like(sc, -(1 << 20)))
-    return sc.contiguous().to(dev)
+def _scored_inputs(gen, n, lq, band, kind):
+    """_fused_inputs, with window codes 26..31 (columns the matrix masks)
+    in a quarter of the "rand" windows."""
+    q, w, lo, hi = _fused_inputs(gen, n, lq, band, kind)
+    if kind == "rand":
+        w[1::4] = torch.randint(0, 32, w[1::4].shape, generator=gen,
+                                dtype=torch.int8)
+    return q, w, lo, hi
 
 
-@pytest.mark.parametrize("n,lq,band,dtype", [
-    (8192, 40, 32, "int8"), (1000, 40, 24, "int32"), (513, 40, 8, "int32"),
-    (300, 60, 32, "int8"), (200, 40, 128, "int8"), (130, 40, 96, "int32"),
-    (100, 300, 48, "int32"), (77, 40, 10, "int8"), (64, 1, 64, "int8"),
-    (5, 0, 32, "int8"),
-])
-def test_sw_scored_kernel(dev, n, lq, band, dtype):
+def _code_fed(dev, name, n, lq, band, kind, matrix):
+    """A code-fed entry of B5 (name "sw_scored") or B6 ("sw_wave") against
+    its plain version (the route's tile + the tile-fed plain SW), with the
+    table's largest value read by the wrapper and passed in as the engine
+    passes it."""
+    mod = sw_scored if name == "sw_scored" else sw_wave
+    entry = getattr(mod, f"{name}_codes")
+    plain = getattr(mod, f"{name}_codes_plain")
     gen = torch.Generator().manual_seed(n + lq + band)
-    sc = _score_tile(gen, n, lq, band, dtype, dev)
-    got = _launched("sw_scored",
-                    lambda: sw_scored.sw_banded_scored(sc, 13, 2))
-    want = sw_scored.sw_banded_scored_plain(sc, 13, 2)
-    for g, x in zip(got, want):
-        assert torch.equal(g, x)
-    assert lq < 2 or int(got[0].max()) > 0
+    mat = torch.from_numpy(padded_matrix(matrix).astype(np.int32)).to(dev)
+    table = sw_scored.code_table(mat, band)
+    go, ge = (13, 2) if matrix == "BLOSUM50" else (11, 1)
+    q, w, lo, hi = (t.to(dev) for t in _scored_inputs(gen, n, lq, band,
+                                                       kind))
+    want = plain(q, w, table, lo, hi, go, ge, band)
+    for tmax in (None, int(table.max())):
+        got = _launched(name, lambda: entry(q, w, table, lo, hi, go, ge,
+                                            band, table_max=tmax))
+        for g, x in zip(got, want):
+            assert torch.equal(g, x)
+    assert lq < 2 or int(want[0].max()) > 0
 
 
-@pytest.mark.parametrize("n,lq,band,dtype", [
-    (8192, 88, 32, "int8"), (1000, 72, 24, "int32"), (513, 96, 16, "int32"),
-    (300, 64, 64, "int8"), (200, 128, 128, "int8"), (100, 300, 120, "int32"),
-    (96, 200, 128, "int32"), (77, 64, 18, "int8"), (65, 200, 40, "int8"),
-    (50, 65, 20, "int8"),   # rows of 20 bytes: the byte-wise staging copy
-    (33, 5, 32, "int8"), (3, 0, 32, "int8"),
+# the earlier tile cases' (n, lq, band), each band now naming its tile
+# route; N = 50,000; the tie kinds of _fused_inputs; other matrices
+@pytest.mark.parametrize("n,lq,band,kind,matrix", [
+    *((*c, "rand", "BLOSUM50") for c in (
+        (8192, 40, 32), (1000, 40, 24), (513, 40, 8), (300, 60, 32),
+        (200, 40, 128), (130, 40, 96), (100, 300, 48), (77, 40, 10),
+        (64, 1, 64), (5, 0, 32), (50_000, 40, 32), (50_000, 40, 24),
+        (393, 40, 1), (257, 40, 33))),
+    (512, 40, 32, "repeat", "BLOSUM50"), (512, 40, 24, "periodic", "BLOSUM50"),
+    (256, 40, 9, "copied", "BLOSUM50"), (256, 40, 64, "repeat", "BLOSUM50"),
+    (1000, 40, 32, "rand", "PAM30"), (1000, 40, 24, "rand", "BLOSUM45"),
 ])
-def test_sw_wave_kernel(dev, n, lq, band, dtype):
+def test_sw_scored_kernel(dev, n, lq, band, kind, matrix):
+    _code_fed(dev, "sw_scored", n, lq, band, kind, matrix)
+
+
+@pytest.mark.parametrize("n,lq,band,kind,matrix", [
+    *((*c, "rand", "BLOSUM50") for c in (
+        (8192, 88, 32), (1000, 72, 24), (513, 96, 16), (300, 64, 64),
+        (200, 128, 128), (100, 300, 120), (96, 200, 128), (77, 64, 18),
+        (65, 200, 40), (50, 65, 20), (33, 5, 32), (3, 0, 32),
+        (50_000, 88, 32))),
+    (512, 88, 32, "repeat", "BLOSUM50"), (512, 72, 24, "periodic", "BLOSUM50"),
+    (256, 88, 64, "copied", "BLOSUM50"), (1000, 88, 32, "rand", "PAM70"),
+])
+def test_sw_wave_kernel(dev, n, lq, band, kind, matrix):
+    _code_fed(dev, "sw_wave", n, lq, band, kind, matrix)
+
+
+@pytest.mark.parametrize("n,lq,band,kind", [
+    (4096, 40, 32, "rand"), (512, 40, 32, "periodic"), (300, 40, 64, "rand"),
+    (200, 37, 80, "periodic"), (200, 41, 18, "repeat"),
+    (128, 40, 128, "copied"),
+])
+def test_sw_fused_and_scored_share_the_dp(dev, n, lq, band, kind):
+    """B3 after its DP moved into csrc/sw_common.cuh: equal to its plain
+    version and to B5 on the same BLOSUM62 codes. Their tables agree there
+    (columns from code_limit on are LOW in the hard-stop matrix; LOW and
+    NEG cells act alike while H < 2^20)."""
     gen = torch.Generator().manual_seed(n + lq + band)
-    sc = _score_tile(gen, n, lq, band, dtype, dev)
-    got = _launched("sw_wave", lambda: sw_wave.sw_banded_wave(sc, 13, 2))
-    want = sw_wave.sw_banded_wave_plain(sc, 13, 2)
-    for g, x in zip(got, want):
-        assert torch.equal(g, x)
-    assert lq < 2 or int(got[0].max()) > 0
+    mat = torch.from_numpy(padded_matrix("BLOSUM62").astype(np.int32)).to(dev)
+    climit = sw_fused.build_packed_matrix(padded_matrix("BLOSUM62",
+                                                        hard_stop=True))[1]
+    q, w, lo, hi = (t.to(dev) for t in _scored_inputs(gen, n, lq, band,
+                                                       kind))
+    fused = _launched("sw_fused", lambda: sw_fused.sw_fused(
+        q, w, mat, lo, hi, 11, 1, band, climit))
+    scored = _launched("sw_scored", lambda: sw_scored.sw_scored_codes(
+        q, w, sw_scored.code_table(mat, band), lo, hi, 11, 1, band))
+    plain = sw_fused.sw_fused_plain(q, w, mat, lo, hi, 11, 1, band, climit)
+    for f, s, p in zip(fused, scored, plain):
+        assert torch.equal(f, p) and torch.equal(s, p)
+    assert int(plain[0].max()) > 0
 
 
 def test_engine_cuda_equals_cpu(dev, tmp_path):
@@ -330,10 +363,13 @@ def test_engine_cuda_equals_cpu(dev, tmp_path):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("frame,kernel", [(40, "sw_scored"), (72, "sw_wave")])
-def test_engine_cuda_equals_cpu_score_fed(dev, tmp_path, frame, kernel):
+@pytest.mark.parametrize("frame,band,kernel", [
+    (40, 32, "sw_scored"), (72, 32, "sw_wave"), (40, 24, "sw_scored"),
+])
+def test_engine_cuda_equals_cpu_score_fed(dev, tmp_path, frame, band, kernel):
     """BLOSUM50 on the golden config-1 index: the score-fed route's packed
-    output on CUDA equals the CPU engine's, through B5 or B6."""
+    output on CUDA equals the CPU engine's (its chunked plain tiles),
+    through one launch of B5 or B6 for the batch and none of B3."""
     from ghostm_tpu_torch.cli import main as cli
     from ghostm_tpu_torch.config import Config
     from ghostm_tpu_torch.engine import SearchEngine
@@ -346,14 +382,16 @@ def test_engine_cuda_equals_cpu_score_fed(dev, tmp_path, frame, kernel):
                 "-o", prefix]) == 0
     idx = load_index(prefix)
     cfg = Config(query_batch=128, matrix="BLOSUM50", gap_open=13,
-                 gap_extend=2, query_frame_len=frame)
+                 gap_extend=2, query_frame_len=frame, band_width=band)
     _, dna, lens = next(read_batches(os.path.join(gold, "config1_reads.fa"),
                                      128, 120))
     g = SearchEngine(cfg, idx, device="cuda")
     c = SearchEngine(cfg, idx, device="cpu", key_table=g.key_table)
     before = dict(_build.LAUNCHES)
     got = g.fetch(g.search_refine_async_dna(dna, lens))
-    assert _build.LAUNCHES[kernel] > before[kernel]
+    assert _build.LAUNCHES[kernel] == before[kernel] + 1
     assert _build.LAUNCHES["sw_fused"] == before["sw_fused"]
+    assert sum(_build.LAUNCHES[k] - before[k]
+               for k in ("sw_scored", "sw_wave")) == 1
     want = c.fetch(c.search_refine_async_dna(dna, lens))
     np.testing.assert_array_equal(got, want)

@@ -3,9 +3,9 @@ SearchEngine(use_pallas=False) on the same random index: the packed
 (6, R, K) output of search_refine_async_dna must be equal, with the index
 loaded through disk and through index_from_arrays, on every align route
 (fused B3, score-fed rows B5, score-fed wave B6). Also the device
-translation, the score-fed chunking, the CUDA band limit, B3's score table
-built once, the gap-cost check and the port's pipeline checkpoint/resume.
-Tolerance 0."""
+translation, the score-fed chunking, the CUDA band and gap-cost limits,
+the align route's score table built once, negative gap costs on the CPU and
+the port's pipeline checkpoint/resume. Tolerance 0."""
 
 import os
 import sys
@@ -51,6 +51,13 @@ SCORE_FED = {"blosum50": B50,
              "blosum50_band24": dict(B50, band_width=24)}
 ROUTE = {"monolithic": "fused", "split": "fused", "blosum50": "rows",
          "blosum50_wave": "wave", "blosum50_band24": "rows"}
+# Negative gap costs (the JAX package takes them; the CUDA kernels do not),
+# on the fused route and on a BLOSUM50 route; explicit Karlin-Altschul
+# constants, since the published table has no such combination.
+KA = dict(ka_lambda=0.3, ka_k=0.1)
+NEG_GAP = {"neg_gap_fused": dict(hits_per_seed=16, gap_open=-1,
+                                 gap_extend=2, **KA),
+           "neg_gap_blosum50": dict(B50, gap_open=13, gap_extend=-1, **KA)}
 
 
 @pytest.fixture(scope="module")
@@ -74,7 +81,7 @@ def built(data):
 def _build_case(data, built, name):
     """(cfg dict, index prefix, JAX index, JAX packed output, dna, lens)."""
     if name not in built:
-        kw = dict({**CASES, **SCORE_FED}[name], query_batch=64)
+        kw = dict({**CASES, **SCORE_FED, **NEG_GAP}[name], query_batch=64)
         prefix = str(data / f"idx_{name}")
         assert jcli(["db", "-i", str(data / "db.fa"), "-o", prefix, "-k",
                      "3", "--config", _cfg_file(data, name, kw)]) == 0
@@ -187,20 +194,69 @@ def test_engine_builds_fused_table_once(case, monkeypatch):
         tables.append(k["table"]), fn(*a, **k))[1])
     eng = tengine.SearchEngine(TConfig(**kw), tdiskio.index_from_arrays(jidx),
                                device="cpu")
-    assert torch.equal(eng.fused_table,
+    assert torch.equal(eng.sw_table,
                        sw_fused.score_table(eng.matrix, eng.code_limit))
     got = tengine.SearchEngine.fetch(eng.search_refine_async_dna(dna, lens))
     np.testing.assert_array_equal(got, want)
-    assert tables and all(t is eng.fused_table for t in tables)
+    assert tables and all(t is eng.sw_table for t in tables)
+
+
+@pytest.mark.parametrize("name,entry", [
+    ("blosum50", "sw_scored_codes"), ("blosum50_wave", "sw_wave_codes"),
+    ("blosum50_band24", "sw_scored_codes"),
+])
+def test_engine_builds_code_table_once(data, built, monkeypatch, name,
+                                       entry):
+    """The score-fed route's code table and its largest value are built at
+    engine init and handed to every call of its entry (B5 or B6), one
+    call per chunk on the CPU; the output is unchanged."""
+    from ghostm_tpu_torch.kernels import sw_scored, sw_wave
+
+    kw, prefix, jidx, want, dna, lens = _build_case(data, built, name)
+    mod = sw_wave if entry == "sw_wave_codes" else sw_scored
+    calls = []
+    fn = getattr(mod, entry)
+    monkeypatch.setattr(mod, entry, lambda *a, **k: (
+        calls.append((a[2], k["table_max"], a[0].shape[0])), fn(*a, **k))[1])
+    eng = tengine.SearchEngine(TConfig(**kw), tdiskio.index_from_arrays(jidx),
+                               device="cpu")
+    band = kw.get("band_width", 32)
+    assert torch.equal(eng.sw_table,
+                       sw_scored.code_table(eng.matrix, band))
+    assert eng.sw_table_max == int(eng.sw_table.max()) == 15
+    eng.chunk = 1024
+    got = tengine.SearchEngine.fetch(eng.search_refine_async_dna(dna, lens))
+    np.testing.assert_array_equal(got, want)
+    assert [c[2] for c in calls] == [1024, 1024, 1024]
+    assert all(t is eng.sw_table and m == 15 for t, m, _ in calls)
+
+
+@pytest.mark.parametrize("name", list(NEG_GAP))
+def test_engine_negative_gap_costs_equal_jax(data, built, name):
+    """The JAX package takes negative gap costs, and so does the port's
+    CPU engine: equal packed output, on the fused route and on a BLOSUM50
+    route."""
+    kw, prefix, jidx, want, dna, lens = _build_case(data, built, name)
+    eng = tengine.SearchEngine(TConfig(**kw), tdiskio.load_index(prefix),
+                               device="cpu")
+    assert eng.route == ("fused" if name == "neg_gap_fused" else "rows")
+    got = tengine.SearchEngine.fetch(eng.search_refine_async_dna(dna, lens))
+    assert (got[1] >> 15).max() > 0, "no hits: the comparison is vacuous"
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("gap_open,gap_extend", [(-1, 1), (11, -1)])
-def test_config_rejects_negative_gap_costs(gap_open, gap_extend):
-    """On every device, before the Karlin-Altschul lookup could be skipped
-    by explicit constants: B3 takes gap costs >= 0 only."""
-    with pytest.raises(ValueError, match="must be >= 0"):
-        TConfig(gap_open=gap_open, gap_extend=gap_extend, ka_lambda=0.3,
-                ka_k=0.1)
+def test_engine_refuses_negative_gap_costs_on_cuda(data, built, monkeypatch,
+                                                   gap_open, gap_extend):
+    """A CUDA engine refuses negative gap costs at init (the SW kernels
+    hold diagonals past the band at a large negative value, which a
+    negative cost could lift); the check needs no card."""
+    _, prefix, jidx, *_ = _build_case(data, built, "monolithic")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(NotImplementedError, match="gap costs >= 0"):
+        tengine.SearchEngine(TConfig(gap_open=gap_open, gap_extend=gap_extend,
+                                     hits_per_seed=16, **KA),
+                             tdiskio.index_from_arrays(jidx))
 
 
 def test_translate_torch_matches_jax_and_host(rng):
