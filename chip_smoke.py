@@ -12,11 +12,13 @@ Phases, each printing one JSON line ({"phase": ...}):
            the card (integer outputs: equal, max_abs_err 0), with CUDA-event
            times of the kernel, the plain version, torch.sort as B1's
            yardstick, and the least time the card could take (bound_ms);
-           the SW rows also give the instructions a cell their time
-           implies and their device time without the wrapper's host work
-           (device_ms); B5 and B6 at the engine's score-fed shape (one
-           launch a batch, from the codes), B5 also on the int32 tile
-           route (band 24);
+           the SW, B2-mono and B4 rows also give their device time
+           without the wrapper's host work (device_ms), the SW rows the
+           instructions a cell their time implies; B5 and B6 at the
+           engine's score-fed shape (one launch a batch, from the codes),
+           B5 also on the int32 tile route (band 24); rows on no path:
+           B2-mono at (6144, 4096) with runs of 128 (36-residue frames),
+           B4 at 9 x (1024, 1026) (rows past the old 48 KB cap);
   golden   `db` + `aln --batch 128` through the port's CLI on CUDA over
            tests/golden/config1_*, byte-compared with the golden table;
   golden_b50  the same index through `aln --matrix BLOSUM50 --gap-open 13
@@ -136,6 +138,25 @@ def presorted_keys(gen, q, m, run, hi, big_frac, dev):
     return k.reshape(q, m).contiguous()
 
 
+def ptxas_lines(log: str) -> list:
+    """nvcc -Xptxas -v: each kernel instance's (mangled) name and its
+    "Used N registers ..." line, and each function's stack frame and
+    spills where they are not all 0."""
+    out, name, props = [], "?", None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "Function properties for" in ln:
+            props = ln.rsplit(" ", 1)[1]
+        elif props and "stack frame" in ln:
+            if any(w != "0" for w in ln.split() if w.isdigit()):
+                out.append(f"{props}: {ln.strip()}")
+            props = None
+        elif "Used" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}")
+    return out
+
+
 def per_kernel(launches: dict) -> dict:
     """Wrapper launch counts -> counts per CUDA kernel (B2's two entries
     launch one kernel)."""
@@ -169,6 +190,10 @@ def kernel_phase(dev):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    # the rows on no path draw from their own generator, so that every
+    # other row sees the inputs of earlier versions of this script
+    gen_extra = torch.Generator(device=dev)
+    gen_extra.manual_seed(1)
     issue_hz = (torch.cuda.get_device_properties(dev).multi_processor_count
                 * 4 * max_sm_clock_hz())
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
@@ -226,16 +251,28 @@ def kernel_phase(dev):
             2 * x.numel() * 4, sort_ops(q, L, 8),
             f"2 per compare-exchange, stages 8..{L.bit_length() - 1}",
             launch=(leg, "sort_rows", (q, m)))
-    # B2 monolithic: golden config-1 shape (768 frames, 38 runs of 16)
-    k1 = presorted_keys(gen, 768, 608, 16, 1 << 14, 0.6, dev)
-    run("B2 sort_vote_rank_rows", "ghostm_tpu_torch/csrc/sort_vote.cu",
-        "ghostm_tpu/kernels/sort.py:74",
-        lambda: S.sort_vote_rank_rows(k1, ncand, 1, presorted_run=16),
-        lambda: S.sort_vote_rank_rows_plain(k1, ncand, 1, presorted_run=16),
-        None, k1.numel() * 4 + 2 * 768 * ncand * 4,
-        sort_ops(768, 1024, 5, 1 + 2 * ncand),
-        "2 per compare-exchange (stages 5..10) + (1 + 2 ncand) per key",
-        launch=("golden", "sort_vote_rank_rows", (768, 608)))
+    # B2 monolithic: golden config-1 shape (768 frames, 38 runs of 16);
+    # then 36-residue frames at hits_per_seed 128 (32 runs of 128: not on
+    # a main path)
+    for q, m, rn, hi, launch in (
+            (768, 608, 16, 1 << 14,
+             ("golden", "sort_vote_rank_rows", (768, 608))),
+            (6144, 4096, 128, 1 << 22, None)):
+        k1 = presorted_keys(gen if launch else gen_extra, q, m, rn, hi, 0.6,
+                            dev)
+        L = max(1 << (m - 1).bit_length(), 128)
+        first = rn.bit_length()
+        run("B2 sort_vote_rank_rows" + ("" if launch else f" ({q}, {m})"),
+            "ghostm_tpu_torch/csrc/sort_vote.cu",
+            "ghostm_tpu/kernels/sort.py:74",
+            lambda: S.sort_vote_rank_rows(k1, ncand, 1, presorted_run=rn),
+            lambda: S.sort_vote_rank_rows_plain(k1, ncand, 1,
+                                                presorted_run=rn),
+            None, k1.numel() * 4 + 2 * q * ncand * 4,
+            sort_ops(q, L, first, 1 + 2 * ncand),
+            f"2 per compare-exchange (stages {first}..{L.bit_length() - 1})"
+            " + (1 + 2 ncand) per key", launch=launch, device_ms=True,
+            shape=[q, m, rn])
     # B2 merge: the sorted halves, (6144, 4096) + (6144, 512) with 100 bp
     # reads and (2944, 8192) + (2944, 2560) with 250 bp reads
     for leg, q, ma, mb in (("scale", 6144, 4096, 512),
@@ -285,19 +322,33 @@ def kernel_phase(dev):
             None, N * (Lq + Lq + B + 8 + 12), 12 * N * Lq * B,
             "12 int32 ops per DP cell", launch=launch, cells=N * Lq * B,
             device_ms=True, shape=[N, Lq, B])
-    # B4: config-2 rank, 9 operands x (8192 reads, 48 hits), 5 keys, top 10
-    R, M, nops = 8192, 48, 9
-    ops = torch.randint(0, 6, (nops, R, M), generator=gen, device=dev,
-                        dtype=torch.int32)
-    ops[5:] = torch.randint(-1000, 1000, (4, R, M), generator=gen,
-                            device=dev, dtype=torch.int32)
-    run("B4 lex_rank_rows", "ghostm_tpu_torch/csrc/lex_rank.cu",
-        "ghostm_tpu/kernels/sort.py:127",
-        lambda: S.lex_rank_rows(ops, 5, 10),
-        lambda: S.lex_rank_rows_plain(ops, 5, 10),
-        None, ops.numel() * 4 + nops * R * 10 * 4, R * 21 * 32 * 26,
-        "26 per compare-exchange (6 compares + 20 moves), 21 passes at L=64",
-        launch=("scale", "lex_rank_rows", (nops, R, M)))
+    # B4: config-2 rank, 9 operands x (8192 reads, 48 hits), 5 keys, top
+    # 10; then rows past the old 48 KB cap, 9 x (1024, 1026) (not on a
+    # main path)
+    nops = 9
+    for R, M, launch in ((8192, 48, ("scale", "lex_rank_rows", (9, 8192, 48))),
+                         (1024, 1026, None)):
+        g = gen if launch else gen_extra
+        ops = torch.randint(0, 6, (nops, R, M), generator=g, device=dev,
+                            dtype=torch.int32)
+        ops[5:] = torch.randint(-1000, 1000, (4, R, M), generator=g,
+                                device=dev, dtype=torch.int32)
+        if launch:   # the count PR 1 held this row to
+            L = 1 << (M - 1).bit_length()
+            passes = sum(range(1, L.bit_length()))
+            n_ops = R * passes * (L // 2) * 26
+            note = ("26 per compare-exchange (6 compares + 20 moves), "
+                    f"{passes} passes at L={L}")
+        else:        # work no design can skip: a top-10 selection
+            n_ops = R * M * (5 + 1)
+            note = "num_keys + 1 compares a column (the top-10 selection)"
+        run("B4 lex_rank_rows" + ("" if launch else f" 9 x ({R}, {M})"),
+            "ghostm_tpu_torch/csrc/lex_rank.cu",
+            "ghostm_tpu/kernels/sort.py:127",
+            lambda: S.lex_rank_rows(ops, 5, 10),
+            lambda: S.lex_rank_rows_plain(ops, 5, 10),
+            None, ops.numel() * 4 + nops * R * 10 * 4, n_ops, note,
+            launch=launch, device_ms=True, shape=[nops, R, M])
     # B5 / B6: the score-fed route at config-2-true with BLOSUM50, one
     # launch over a batch's 49152 frames x 8 candidates, from the codes and
     # the code table the engine builds once (its largest value passed in);
@@ -669,8 +720,7 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
     t0 = time.time()
     logs = _build.build_all()
-    ptxas = {n: [ln.strip() for ln in log.splitlines() if "Used" in ln]
-             for n, log in logs.items()}
+    ptxas = {n: ptxas_lines(log) for n, log in logs.items()}
     emit(phase="build", seconds=time.time() - t0, ptxas=ptxas)
     entries = kernel_phase(dev)
     runs = dict(zip(("golden", "golden_b50"), golden_phases()))

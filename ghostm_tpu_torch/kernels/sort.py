@@ -14,7 +14,7 @@ versions' tie-breaks.
                            first topk columns
 
 Caller contract (the JAX package's kernels/sort.py): invalid vote keys are
->= BIG = 2^30 and sort to the row's tail; kernels pad rows to a power of
+>= BIG = 2^30 and sort to the row's tail; B1 and B2 pad rows to a power of
 two >= 128 with PAD = INT32_MAX.
 """
 
@@ -34,6 +34,9 @@ _LANES = 128           # the top-ncand output width of the JAX kernel
 # opts in (csrc/bitonic.cuh row_smem_ok); 16384 keys cover the merge row of
 # 88-residue frames (84 k-mer positions x 128-wide table rows)
 MAX_SMEM_ROW = 64 << 10
+# B4's keys and index: (num_keys + 1) x L int32 of shared memory, up to an
+# H100 block's 227 KB opt-in (csrc/lex_rank.cu)
+LEX_SMEM_ROW = 227 << 10
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -191,8 +194,10 @@ def sort_vote_rank_rows(x: torch.Tensor, ncand: int, min_votes: int,
                         presorted_run: int = 0):
     """Fused sort + run-length vote + top-ncand of each row of a (Q, M)
     int32 key array (invalid keys >= BIG). Returns (top_keys, top_votes),
-    each (Q, ncand) int32. Replaces kernels/sort.py::sort_vote_rank_rows
-    (Pallas _sort_vote_kernel, monolithic entry)."""
+    each (Q, ncand) int32. The kernel sorts with B1's register network and
+    votes as the merge entry does. Replaces
+    kernels/sort.py::sort_vote_rank_rows (Pallas _sort_vote_kernel,
+    monolithic entry)."""
     if x.device.type == "cpu":
         return sort_vote_rank_rows_plain(x, ncand, min_votes, presorted_run)
     Q, M = x.shape
@@ -208,10 +213,10 @@ def sort_vote_rank_rows(x: torch.Tensor, ncand: int, min_votes: int,
     first = min(run.bit_length(), L.bit_length())
     lib = _build.load("sort_vote")
     fn = lib.ghostm_sort_vote_rows
-    fn.argtypes = [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P]
+    fn.argtypes = [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
     fn.restype = _I
-    _build.check(fn(x.data_ptr(), Q, M, L, first, ncand, min_votes,
-                    keys.data_ptr(), votes.data_ptr(),
+    _build.check(fn(x.data_ptr(), Q, M, L, first, int(_aligned(x)), ncand,
+                    min_votes, keys.data_ptr(), votes.data_ptr(),
                     _build.stream_ptr(x.device)), "sort_vote_rank_rows")
     _build.count("sort_vote_rank_rows", x.shape)
     return keys, votes
@@ -289,8 +294,10 @@ def lex_rank_rows(ops: torch.Tensor, num_keys: int, topk: int) -> torch.Tensor:
     """ops: (nops, Q, M) int32. Sorts each row ascending-lexicographically
     on ops[0..num_keys) with the original column as the final key, and
     returns the first min(topk, M) columns of every operand:
-    (nops, Q, min(topk, M)). Replaces kernels/sort.py::lex_rank_rows
-    (Pallas _lex_rank_kernel)."""
+    (nops, Q, min(topk, M)). The kernel ranks on the keys and the index
+    alone (shared memory: num_keys + 1 arrays of L) and fetches the
+    winners' columns. Replaces kernels/sort.py::lex_rank_rows (Pallas
+    _lex_rank_kernel)."""
     if ops.device.type == "cpu":
         return lex_rank_rows_plain(ops, num_keys, topk)
     nops, Q, M = ops.shape
@@ -299,7 +306,7 @@ def lex_rank_rows(ops: torch.Tensor, num_keys: int, topk: int) -> torch.Tensor:
     topk = min(topk, M)
     L = 1 << max(M - 1, 1).bit_length()   # 48 -> 64: no 128-lane floor here
     _check_cuda(ops)
-    _check_row_smem(L, nops + 1, limit=48 << 10)   # B4 does not opt in
+    _check_row_smem(L, num_keys + 1, limit=LEX_SMEM_ROW)
     out = torch.empty((nops, Q, topk), dtype=torch.int32, device=ops.device)
     if Q == 0:
         return out

@@ -115,16 +115,40 @@ def test_sort_rows_kernel(dev, q, m, run, kind):
     assert torch.equal(got, S.sort_rows_plain(x, presorted_run=run))
 
 
-@pytest.mark.parametrize("q,m,run,minv,hi", [
+@pytest.mark.parametrize("q,m,run,minv,hi,kind", _cases([
     (768, 608, 16, 1, 1 << 10), (40, 96, 1, 1, 64), (16, 640, 128, 2, 1000),
     (9, 4096, 0, 1, 50), (3, 128, 128, 1, 4),
-])
-def test_sort_vote_kernel(dev, q, m, run, minv, hi):
+], [
+    (6144, 4096, 128, 1, 1 << 22, "rand"),   # 36-residue frames
+    # `first` from run 0 and 1 (stage 1), 16 and L (no stage: one run)
+    (33, 1024, 0, 1, 300, "rand"), (33, 1024, 1, 1, 300, "rand"),
+    (33, 1024, 16, 1, 300, "rand"), (33, 1024, 1024, 1, 300, "rand"),
+    (8, 16384, 128, 1, 1 << 12, "rand"), (5, 16384, 0, 1, 300, "rand"),
+    (70, 128, 0, 1, 20, "rand"),    # 32 rows a block, 8 a warp's vote
+    (33, 300, 0, 1, 20, "rand"), (9, 2048, 16, 1, 100, "rand"),
+    (16, 608, 16, 1, 1 << 10, "ncand32"), (16, 4096, 128, 1, 300, "ncand128"),
+    (4, 16384, 128, 1, 300, "ncand128"), (70, 128, 0, 1, 20, "ncand128"),
+    (16, 608, 16, 100000, 1 << 10, "rand"),   # min_votes above every run
+    (16, 608, 16, 1, 0, "big"), (16, 4096, 128, 1, 0, "pad"),
+    (16, 608, 16, 1, 0, "equal"), (16, 1024, 16, 1, 0, "few"),
+    (16, 2048, 0, 1, 0, "ties"),
+    (40, 608, 16, 1, 1 << 10, "unaligned"), (40, 98, 0, 1, 30, "rand"),
+]))
+def test_sort_vote_kernel(dev, q, m, run, minv, hi, kind):
+    """B2's monolithic entry: B1's network, then the merge entry's vote."""
     gen = torch.Generator().manual_seed(m + run)
-    x = _keys(gen, q, m, run or 1, hi, dev)
+    x = _keys(gen, q, m, run or 1, max(hi, 1), "cpu")
+    if kind in ("equal", "big", "pad", "few", "ties"):
+        x = _fill(x, kind, gen)
+        if run > 1:   # re-establish the presorted runs
+            x = _presorted(x, run)
+    x = x.to(dev)
+    if kind == "unaligned":
+        x = _unaligned(x)
+    ncand = int(kind[5:]) if kind.startswith("ncand") else 8
     got = _launched("sort_vote_rank_rows",
-                    lambda: S.sort_vote_rank_rows(x, 8, minv, run))
-    want = S.sort_vote_rank_rows_plain(x, 8, minv, run)
+                    lambda: S.sort_vote_rank_rows(x, ncand, minv, run))
+    want = S.sort_vote_rank_rows_plain(x, ncand, minv, run)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -168,18 +192,52 @@ def test_merge_vote_kernel(dev, q, la, mb, minv, hi, kind):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("q,m,nk,nops,topk", [
-    (8192, 48, 5, 9, 10), (100, 16, 3, 3, 8), (10, 100, 2, 4, 100),
-    (50, 64, 3, 7, 64),
-])
-def test_lex_rank_kernel(dev, q, m, nk, nops, topk):
-    gen = torch.Generator().manual_seed(q + m)
+def _lex_ops(gen, kind, q, m, nk, nops):
+    """Keys 0..2 ("rand", the earlier cases; "ties": ties in most
+    columns, 0..1), or "sentinel": INT32_MIN, INT32_MAX = PAD and values
+    beside them, tied across them; payload -100..99."""
     ops = torch.randint(0, 3, (nops, q, m), generator=gen, dtype=torch.int32)
+    if kind == "ties":
+        ops[:nk] = torch.randint(0, 2, (nk, q, m), generator=gen,
+                                 dtype=torch.int32)
+    elif kind == "sentinel":
+        vals = torch.tensor([-(1 << 31), (1 << 31) - 1, S.PAD, -1, 0, 1],
+                            dtype=torch.int32)
+        ops[:nk] = vals[torch.randint(0, 6, (nk, q, m), generator=gen)]
     ops[nk:] = torch.randint(-100, 100, (nops - nk, q, m), generator=gen,
                              dtype=torch.int32)
-    ops = ops.to(dev)
+    return ops
+
+
+@pytest.mark.parametrize("q,m,nk,nops,topk,kind", _cases([
+    (8192, 48, 5, 9, 10), (100, 16, 3, 3, 8), (10, 100, 2, 4, 100),
+    (50, 64, 3, 7, 64),
+], [
+    (8192, 48, 3, 3, 8, "rand"),       # the select's 3 operands, 3 keys
+    (100, 1, 5, 9, 10, "rand"), (100, 33, 5, 9, 10, "rand"),
+    (100, 64, 5, 9, 10, "rand"), (100, 65, 5, 9, 10, "rand"),
+    (50, 200, 5, 9, 10, "rand"), (64, 1026, 5, 9, 10, "rand"),
+    (4, 8192, 5, 9, 10, "rand"),        # the cap at 5 keys: 192 KB
+    (300, 48, 5, 9, 10, "sentinel"), (50, 200, 5, 9, 10, "sentinel"),
+    (300, 48, 5, 9, 10, "ties"), (20, 1026, 3, 3, 1026, "ties"),
+    (100, 20, 5, 9, 30, "rand"),        # topk > M
+    (77, 48, 1, 4, 10, "ties"), (77, 48, 9, 9, 10, "ties"),   # other
+    (77, 64, 2, 2, 64, "sentinel"), (9, 300, 7, 8, 12, "ties"),  # counts
+    (5, 2, 5, 9, 10, "ties"),
+]))
+def test_lex_rank_kernel(dev, q, m, nk, nops, topk, kind):
+    gen = torch.Generator().manual_seed(q + m)
+    ops = _lex_ops(gen, kind, q, m, nk, nops).to(dev)
     got = _launched("lex_rank_rows", lambda: S.lex_rank_rows(ops, nk, topk))
     assert torch.equal(got, S.lex_rank_rows_plain(ops, nk, topk))
+
+
+@pytest.mark.parametrize("m,nk", [(8193, 5), (8192, 8), (16384, 3)])
+def test_lex_rank_kernel_row_cap(dev, m, nk):
+    """Above (num_keys + 1) x L x 4 bytes = 227 KB the wrapper raises."""
+    ops = torch.zeros((nk, 2, m), dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="227 KB"):
+        S.lex_rank_rows(ops, nk, 10)
 
 
 def _fused_inputs(gen, n, lq, band, kind):

@@ -87,9 +87,12 @@ def test_sort_rows_matches_jax(rng, q, m, run, kind):
     (4, 608, 16, 1, "equal"), (4, 608, 16, 1, "big"), (4, 640, 128, 1, "pad"),
     (4, 608, 16, 1, "few"), (4, 608, 16, 1, "ties"),
     (4, 608, 16, 1000, "rand"),
+    (3, 4096, 128, 1, "rand"),   # 36-residue frames: 32 runs of 128
 ]))
 def test_sort_vote_rank_rows_matches_jax(rng, q, m, run, minv, kind):
-    """(4, 608, run 16) is the golden config-1 shape (L = 1024)."""
+    """(4, 608, run 16) is the golden config-1 shape (L = 1024); (3, 4096,
+    run 128) a power-of-two run count, which takes the monolithic entry
+    (36-residue frames at hits_per_seed 128)."""
     keys = rng.integers(0, 40 * 128, (q, m)).astype(np.int32)
     keys[rng.random((q, m)) < 0.4] = BIG
     keys = _fill(keys, kind, rng)
@@ -135,26 +138,49 @@ def test_merge_vote_rank_rows_matches_jax(rng, q, nruns, run, minv, kind):
     _eq(gv, wv)
 
 
-@pytest.mark.parametrize("q,m,nk,nops,topk,ties", [
-    (16, 48, 5, 9, 10, False), (8, 16, 3, 3, 8, False),
-    (8, 100, 2, 4, 100, False), (8, 64, 3, 7, 64, True),
+_I32 = np.iinfo(np.int32)
+
+
+def _lex_keys(rng, kind, nk, q, m):
+    """Key operands: "rand" (the last key a permutation: few full ties),
+    "ties" (values 0..2: full-key ties with differing payloads — both
+    sides are stable, so the payload association must match exactly),
+    "sentinel" (INT32_MIN, INT32_MAX = PAD and values beside them, ties
+    across all of them)."""
+    if kind == "ties":
+        return [rng.integers(0, 3, (q, m)) for _ in range(nk)]
+    if kind == "sentinel":
+        vals = np.array([_I32.min, _I32.max, tsort.PAD, -1, 0, 1], np.int64)
+        return [rng.choice(vals, (q, m)) for _ in range(nk)]
+    return ([rng.integers(0, 6, (q, m)) for _ in range(nk - 1)]
+            + [np.stack([rng.permutation(m) for _ in range(q)])])
+
+
+@pytest.mark.parametrize("q,m,nk,nops,topk,kind", [
+    # the earlier cases, their ids unchanged (ties True -> "ties")
+    *(pytest.param(*c[:5], "ties" if c[5] else "rand",
+                   id="-".join(map(str, c)))
+      for c in ((16, 48, 5, 9, 10, False), (8, 16, 3, 3, 8, False),
+                (8, 100, 2, 4, 100, False), (8, 64, 3, 7, 64, True))),
+    (4, 48, 5, 9, 10, "sentinel"),
+    (4, 16, 3, 3, 8, "ties"),         # num_keys == nops: no payload
+    (4, 40, 1, 3, 10, "ties"),        # num_keys == 1
+    (4, 1, 3, 4, 10, "rand"), (4, 2, 2, 4, 10, "ties"),   # M 1 and 2
+    # rows past a warp's 64 columns, and past the old 48 KB cap (held
+    # against lax.sort alone, the reference's non-kernel path)
+    (4, 65, 5, 9, 10, "sentinel"), (3, 1026, 5, 9, 10, "ties"),
 ])
-def test_lex_rank_rows_matches_jax(rng, q, m, nk, nops, topk, ties):
-    """ties=True: full-key ties with differing payloads — both sides are
-    stable, so the payload association must match exactly."""
-    if ties:
-        ops = [rng.integers(0, 3, (q, m)) for _ in range(nk)]
-    else:
-        ops = [rng.integers(0, 6, (q, m)) for _ in range(nk - 1)]
-        ops.append(np.stack([rng.permutation(m) for _ in range(q)]))
+def test_lex_rank_rows_matches_jax(rng, q, m, nk, nops, topk, kind):
+    ops = _lex_keys(rng, kind, nk, q, m)
     ops += [rng.integers(-50, 1000, (q, m)) for _ in range(nops - nk)]
     ops = np.stack(ops).astype(np.int32)
     got = tsort.lex_rank_rows(torch.from_numpy(ops), nk, topk)
-    want = jsort.lex_rank_rows(tuple(jnp.asarray(o) for o in ops), nk, topk,
-                               interpret=True)
     assert got.shape == (nops, q, min(topk, m))
-    for g, w in zip(got, want):
-        _eq(g, w)
+    if m <= 100:   # the Pallas kernel in interpret mode: ~10 s at M 65
+        want = jsort.lex_rank_rows(tuple(jnp.asarray(o) for o in ops), nk,
+                                   topk, interpret=True)
+        for g, w in zip(got, want):
+            _eq(g, w)
     ref = lax.sort(tuple(jnp.asarray(o) for o in ops), num_keys=nk)
     for g, w in zip(got, ref):
         _eq(g, np.asarray(w)[:, :topk])
