@@ -18,12 +18,22 @@ Phases, each printing one JSON line ({"phase": ...}):
            engine's score-fed shape (one launch a batch, from the codes),
            B5 also on the int32 tile route (band 24); rows on no path:
            B2-mono at (6144, 4096) with runs of 128 (36-residue frames),
-           B4 at 9 x (1024, 1026) (rows past the old 48 KB cap);
+           B4 at 9 x (1024, 1026) (rows past the old 48 KB cap); B1's
+           long-row entry (tiles, then merge passes) at the 5 kbp and
+           10 kbp propose rows, (768, 27600) and (384, 55248) with runs of
+           16, and B3 at the long-read align shapes (3072 x Lq 1728, band
+           64; 1536 x Lq 3456, band 128); the long-read golden's own
+           shapes: B1 at (128, 13800) with runs of 8 (the one-block L =
+           16384 instance), B3 at 120 x Lq 1728, band 64, B4 at 9 x (5, 24);
   golden   `db` + `aln --batch 128` through the port's CLI on CUDA over
            tests/golden/config1_*, byte-compared with the golden table;
   golden_b50  the same index through `aln --matrix BLOSUM50 --gap-open 13
            --gap-extend 2` (the score-fed path, B5), byte-compared with
            tests/golden/config1_b50_hits.tsv;
+  golden_longread  `db` + `aln --config tests/golden/longread_cfg.json
+           --max-read-len 5300` (5 kbp reads, collinear chaining: B1, the
+           chained vote, B3, B4), byte-compared with
+           tests/golden/longread_hits.tsv;
   scale    the config-2-true deployment: 570,000 synthetic proteins of
            250-450 aa (numpy default_rng(7)), k = 5, hits_per_seed 128,
            100 bp reads in 8192-read batches through
@@ -35,7 +45,15 @@ Phases, each printing one JSON line ({"phase": ...}):
            score-fed route, B5; 1 warm + 3 timed batches, a stage
            breakdown, the 256-read CPU cross-check);
   scale_b50_250bp  the same index, BLOSUM50 13/2, 250 bp reads in
-           88-residue frames (B6's route; its own key table).
+           88-residue frames (B6's route; its own key table);
+  longread_5kbp  long-read mode at database size: the same 570,000
+           proteins plus 1,000 of 1,750-1,850 aa (default_rng(8)), k = 4,
+           hits_per_seed 16 (16-wide key rows); 5,000 bp reads simulated
+           from the long proteins, 128 a batch (768 frames of 1728
+           residues), the golden's config 5 (band 64, chain_gamma 2, 4
+           candidates a frame), 1 warm + 3 timed batches; B1's long-row
+           entry must launch; a 16-read batch cross-checked against the
+           same engine on device="cpu".
 The launch counters are set to 0 just before each main-path run (each
 golden aln and each scale leg's timed run) and read just after; every
 kernel of that path must have launched in its run. The wrappers also
@@ -68,6 +86,12 @@ OPS_PER_S = 67e12           # H100 SXM non-tensor 32-bit rate (see bound())
 N_SUBJECTS = 570_000
 TIMED_BATCHES = 5            # 8192-read batches after 1 warm batch
 TIMED_B50 = 3                # the same, in each BLOSUM50 leg
+TIMED_LONG = 3               # 128-read batches of the long-read leg
+N_LONG = 1_000               # long proteins of the long-read database
+# the golden's config 5 (tests/golden/longread_cfg.json) at 128 reads a batch
+LONGREAD = dict(query_frame_len=1728, band_width=64, seed_len=4,
+                chain_gamma=2, candidates_per_frame=4, hits_per_seed=16,
+                query_batch=128)
 B50 = dict(matrix="BLOSUM50", gap_open=13, gap_extend=2)
 
 
@@ -160,7 +184,8 @@ def ptxas_lines(log: str) -> list:
 def per_kernel(launches: dict) -> dict:
     """Wrapper launch counts -> counts per CUDA kernel (B2's two entries
     launch one kernel)."""
-    return {"B1": launches["sort_rows"],
+    return {"B1": launches["sort_rows"] + launches["sort_rows_tiles"]
+            + launches["sort_rows_merge"],
             "B2": launches["sort_vote_rank_rows"]
             + launches["merge_vote_rank_rows"],
             "B3": launches["sw_fused"], "B4": launches["lex_rank_rows"],
@@ -294,17 +319,19 @@ def kernel_phase(dev):
     # B3: config-2 align, 49152 frames x 8 candidates, Lq 40, band 32;
     # then band 64 (not on a main path: two lanes an alignment); the score
     # table built once, as the engine builds it
-    def pairs(N, Lq, B):
+    def pairs(N, Lq, B, g=None):
         """Codes and window-local spans of N alignments, half the pairs
-        related (the query in the window): real alignments."""
-        q = torch.randint(0, 26, (N, Lq), generator=gen, device=dev,
+        related (the query in the window): real alignments; drawn from
+        `g` (default: gen)."""
+        gen_ = g or gen
+        q = torch.randint(0, 26, (N, Lq), generator=gen_, device=dev,
                           dtype=torch.int8)
-        w = torch.randint(0, 26, (N, Lq + B), generator=gen, device=dev,
+        w = torch.randint(0, 26, (N, Lq + B), generator=gen_, device=dev,
                           dtype=torch.int8)
         w[::2, 8:8 + Lq] = q[::2]
-        lo = torch.randint(0, 8, (N,), generator=gen, device=dev,
+        lo = torch.randint(0, 8, (N,), generator=gen_, device=dev,
                            dtype=torch.int32)
-        hi = torch.randint(Lq // 2, Lq + B, (N,), generator=gen, device=dev,
+        hi = torch.randint(Lq // 2, Lq + B, (N,), generator=gen_, device=dev,
                            dtype=torch.int32)
         return q, w, lo, hi
 
@@ -377,17 +404,97 @@ def kernel_phase(dev):
             tile_route="int8" if B % 32 == 0 else "int32",
             launch=(*launch, (N, Lq, B)) if launch else None,
             cells=N * Lq * B, device_ms=True)
+    # long-read rows (their own generator): B1's long-row entry at the
+    # propose rows of 5 kbp reads (128 a batch, 1725 k-mer positions x
+    # 16-wide table rows) and 10 kbp reads (64 a batch, 3453 x 16), runs
+    # of 16, nearly every key valid (full seed buckets); B3 at their align
+    # shapes (4 candidates a frame)
+    gen_long = torch.Generator(device=dev)
+    gen_long.manual_seed(2)
+    for leg, q, m in (("longread_5kbp", 768, 1725 * 16),
+                      (None, 384, 3453 * 16)):
+        x = presorted_keys(gen_long, q, m, 16, 571_000 * 113, 0.02, dev)
+        tiles = -(-m // S.TILE)
+        passes = (tiles - 1).bit_length()
+        run(f"B1 sort_rows ({q}, {m})", "ghostm_tpu_torch/csrc/sort_rows.cu",
+            "ghostm_tpu/kernels/sort.py:69",
+            lambda: S.sort_rows(x, presorted_run=16),
+            lambda: S.sort_rows_plain(x, presorted_run=16),
+            lambda: torch.sort(x, dim=1),
+            2 * x.numel() * 4,
+            sort_ops(q * tiles, S.TILE, 5) + q * m * passes,
+            "2 per compare-exchange of the tile networks (stages 5..14) + "
+            "1 a key a merge pass",
+            launch=(leg, "sort_rows_tiles", (q, m)) if leg else None,
+            device_ms=True, shape=[q, m, 16], tiles=tiles,
+            merge_passes=passes)
+    tab = F.score_table(mat, 23)
+    for N, Lq, B, leg in ((3072, 1728, 64, "longread_5kbp"),
+                          (1536, 3456, 128, None)):
+        q, w, lo, hi = pairs(N, Lq, B)
+        run(f"B3 sw_fused (Lq {Lq}, band {B})",
+            "ghostm_tpu_torch/csrc/sw_fused.cu",
+            "ghostm_tpu/kernels/sw_fused.py:129",
+            lambda: F.sw_fused(q, w, mat, lo, hi, 11, 1, B, 23, table=tab),
+            lambda: F.sw_fused_plain(q, w, mat, lo, hi, 11, 1, B, 23),
+            None, N * (Lq + Lq + B + 8 + 12), 12 * N * Lq * B,
+            "12 int32 ops per DP cell", reps=5,
+            launch=(leg, "sw_fused", (N, Lq)) if leg else None,
+            cells=N * Lq * B, device_ms=True, shape=[N, Lq, B])
+    # the long-read golden's own launches (its own generator): 5 reads, 30
+    # frames in 128 propose rows of 1725 positions x 8-wide table rows (B1's
+    # one-block L = 16384 instance, runs of 8; 8 subjects x 113 bins: heavy
+    # ties), 120 alignments of Lq 1728, band 64, and B4 at 9 x (5, 24)
+    gen_gold = torch.Generator(device=dev)
+    gen_gold.manual_seed(3)
+    x = presorted_keys(gen_gold, 128, 13_800, 8, 8 * 113, 0.5, dev)
+    run("B1 sort_rows (128, 13800)", "ghostm_tpu_torch/csrc/sort_rows.cu",
+        "ghostm_tpu/kernels/sort.py:69",
+        lambda: S.sort_rows(x, presorted_run=8),
+        lambda: S.sort_rows_plain(x, presorted_run=8),
+        lambda: torch.sort(x, dim=1),
+        2 * x.numel() * 4, sort_ops(128, 16_384, 4),
+        "2 per compare-exchange, stages 4..14",
+        launch=("golden_longread", "sort_rows", (128, 13_800)),
+        device_ms=True, shape=[128, 13_800, 8])
+    N, Lq, B = 120, 1728, 64
+    q, w, lo, hi = pairs(N, Lq, B, gen_gold)
+    run(f"B3 sw_fused ({N} x Lq {Lq}, band {B})",
+        "ghostm_tpu_torch/csrc/sw_fused.cu",
+        "ghostm_tpu/kernels/sw_fused.py:129",
+        lambda: F.sw_fused(q, w, mat, lo, hi, 11, 1, B, 23, table=tab),
+        lambda: F.sw_fused_plain(q, w, mat, lo, hi, 11, 1, B, 23),
+        None, N * (Lq + Lq + B + 8 + 12), 12 * N * Lq * B,
+        "12 int32 ops per DP cell", reps=5,
+        launch=("golden_longread", "sw_fused", (N, Lq)),
+        cells=N * Lq * B, device_ms=True, shape=[N, Lq, B])
+    R, M = 5, 24
+    ops = torch.randint(0, 6, (nops, R, M), generator=gen_gold, device=dev,
+                        dtype=torch.int32)
+    ops[5:] = torch.randint(-1000, 1000, (4, R, M), generator=gen_gold,
+                            device=dev, dtype=torch.int32)
+    L = 1 << (M - 1).bit_length()
+    passes = sum(range(1, L.bit_length()))
+    run(f"B4 lex_rank_rows 9 x ({R}, {M})",
+        "ghostm_tpu_torch/csrc/lex_rank.cu", "ghostm_tpu/kernels/sort.py:127",
+        lambda: S.lex_rank_rows(ops, 5, 10),
+        lambda: S.lex_rank_rows_plain(ops, 5, 10),
+        None, ops.numel() * 4 + nops * R * 10 * 4, R * passes * (L // 2) * 26,
+        "26 per compare-exchange (6 compares + 20 moves), "
+        f"{passes} passes at L={L}",
+        launch=("golden_longread", "lex_rank_rows", (nops, R, M)),
+        device_ms=True, shape=[nops, R, M])
     del x, k1, keys, a, b, q, w, lo, hi, tab, ops, flush
     torch.cuda.empty_cache()
     return entries
 
 
 def golden_phase(prefix: str, tag: str, flags, gold: str, need,
-                 forbid=()):
-    """`aln --batch 128 --device cuda` through the port's CLI over the
-    config-1 index `prefix` and reads, byte-compared with tests/golden/
-    `gold`; the kernels in `need` must launch in that run, those in
-    `forbid` must not."""
+                 forbid=(), reads: str = "config1_reads.fa"):
+    """`aln --device cuda` with `flags` through the port's CLI over the
+    index `prefix` and tests/golden/`reads`, byte-compared with
+    tests/golden/`gold`; the kernels in `need` must launch in that run,
+    those in `forbid` must not."""
     from ghostm_tpu_torch.cli import main as cli
     from ghostm_tpu_torch.kernels import _build
 
@@ -396,9 +503,8 @@ def golden_phase(prefix: str, tag: str, flags, gold: str, need,
         out = os.path.join(d, "hits.tsv")
         _build.reset_launches()
         t0 = time.time()
-        if cli(["aln", "-d", prefix, "-i",
-                os.path.join(golds, "config1_reads.fa"), "-o", out,
-                "--batch", "128", "--device", "cuda", *flags]) != 0:
+        if cli(["aln", "-d", prefix, "-i", os.path.join(golds, reads),
+                "-o", out, "--device", "cuda", *flags]) != 0:
             raise SystemExit(f"{tag}: aln failed")
         wall = time.time() - t0
         launches, shapes = dict(_build.LAUNCHES), dict(_build.SHAPES)
@@ -422,40 +528,69 @@ def golden_phase(prefix: str, tag: str, flags, gold: str, need,
 
 def golden_phases():
     """One config-1 index (`db` through the port's CLI), then the BLOSUM62
-    golden (B3) and the BLOSUM50 golden (score-fed, B5)."""
+    golden (B3) and the BLOSUM50 golden (score-fed, B5); then the
+    long-read golden on its own index (config 5: B1's one-block rows of
+    1725 x 8 keys, the chained vote, B3, B4; never B2)."""
     from ghostm_tpu_torch.cli import main as cli
 
+    golds = os.path.join(ROOT, "tests", "golden")
     with tempfile.TemporaryDirectory() as d:
         prefix = os.path.join(d, "idx")
-        if cli(["db", "-i", os.path.join(ROOT, "tests", "golden",
-                                         "config1_db.fa"),
+        if cli(["db", "-i", os.path.join(golds, "config1_db.fa"),
                 "-o", prefix]) != 0:
             raise SystemExit("golden: db failed")
         golden = golden_phase(
-            prefix, "golden", [], "config1_hits.tsv",
+            prefix, "golden", ["--batch", "128"], "config1_hits.tsv",
             ("sort_vote_rank_rows", "sw_fused", "lex_rank_rows"))
         b50 = golden_phase(
-            prefix, "golden_b50", ["--matrix", "BLOSUM50", "--gap-open",
-                                   "13", "--gap-extend", "2"],
+            prefix, "golden_b50", ["--batch", "128", "--matrix", "BLOSUM50",
+                                   "--gap-open", "13", "--gap-extend", "2"],
             "config1_b50_hits.tsv",
             ("sort_vote_rank_rows", "sw_scored", "lex_rank_rows"),
             forbid=("sw_fused", "sw_wave"))
-    return golden, b50
+        cfgf = os.path.join(golds, "longread_cfg.json")
+        prefix = os.path.join(d, "idx_lr")
+        if cli(["db", "-i", os.path.join(golds, "longread_db.fa"), "-o",
+                prefix, "--config", cfgf]) != 0:
+            raise SystemExit("golden_longread: db failed")
+        longread = golden_phase(
+            prefix, "golden_longread", ["--config", cfgf, "--max-read-len",
+                                        "5300"], "longread_hits.tsv",
+            ("sort_rows", "sw_fused", "lex_rank_rows"),
+            forbid=("sort_vote_rank_rows", "merge_vote_rank_rows"),
+            reads="longread_reads.fa")
+    return golden, b50, longread
 
 
-def build_config2_index(n_subjects: int, cfg):
+def build_config2_index(n_subjects: int, cfg, n_long: int = 0):
     """The config-2-true store + k=5 seed index (positions truncated to the
-    first hits_per_seed per bucket), as one shard."""
+    first hits_per_seed per bucket), as one shard. n_long > 0 (the
+    long-read leg): n_long proteins of 1750-1850 aa (default_rng(8)) follow
+    the short ones, and the truncation is `db`'s global hash sampling
+    (seeds.bucket_keep): at k = 4 every bucket is full, and
+    keeping the first positions would leave the long proteins no seed."""
     from ghostm_tpu_torch.index import diskio, seeds
     from ghostm_tpu_torch.index.store import SubjectStore
     from ghostm_tpu_torch.utils.simulate import fast_proteins, store_arrays
 
     rng = np.random.default_rng(7)
     codes, lens = fast_proteins(rng, n_subjects)
+    if n_long:
+        c2, l2 = fast_proteins(np.random.default_rng(8), n_long, 1750, 1850)
+        codes, lens = np.concatenate([codes, c2]), np.concatenate([lens, l2])
+        n_subjects += n_long
     buf, starts = store_arrays(codes, lens, cfg.sentinel_pad)
     st = SubjectStore(buffer=buf, starts=starts, lengths=lens.astype(np.int32),
                       subject_ids=np.arange(n_subjects, dtype=np.int32),
                       names=[f"s{i}" for i in range(n_subjects)])
+    if n_long:
+        keep = seeds.bucket_keep(codes, lens, cfg.seed_len,
+                                 cfg.hits_per_seed)
+        keep_buf = seeds.buffer_keep(keep, lens, cfg.seed_len,
+                                     np.arange(n_subjects), starts, len(buf))
+        sidx = seeds.build_seed_index(buf, cfg.seed_len, keep_buf)
+        return diskio.stack_shards([diskio.IndexShard(st, sidx)],
+                                   cfg.seed_len)
     sidx = seeds.build_seed_index(buf, cfg.seed_len)
     bs = np.asarray(sidx.bucket_starts, np.int64)
     counts = np.diff(bs)
@@ -469,7 +604,10 @@ def build_config2_index(n_subjects: int, cfg):
     return diskio.stack_shards([diskio.IndexShard(st, sidx)], cfg.seed_len)
 
 
-def make_batches(index, n_batches: int, R: int, read_len: int = 100):
+def make_batches(index, n_batches: int, R: int, read_len: int = 100,
+                 source=None):
+    """Reads simulated from 256 random subjects (default_rng(1)), or from
+    the subjects `source` (a range of ids)."""
     from ghostm_tpu_torch.ops.encode import encode_dna
     from ghostm_tpu_torch.utils.simulate import (
         decode_protein, reads_from_proteins,
@@ -477,7 +615,8 @@ def make_batches(index, n_batches: int, R: int, read_len: int = 100):
 
     st = index.shards[0].store
     rng = np.random.default_rng(1)
-    pick = rng.integers(0, st.num_subjects, 256)
+    pick = (rng.integers(0, st.num_subjects, 256) if source is None
+            else np.asarray(source))
     prots = [decode_protein(st.subject_seq(int(p))) for p in pick]
     out = []
     for bi in range(n_batches):
@@ -594,16 +733,15 @@ def timed_run(eng, batches):
             torch.cuda.max_memory_allocated())
 
 
-def crosscheck(eng, index, batch):
-    """256 reads on the card vs the same engine on the CPU: (equal, hits)."""
+def crosscheck(eng, index, batch, n: int = 256):
+    """n reads on the card vs the same engine on the CPU: (equal, hits)."""
     from ghostm_tpu_torch.engine import SearchEngine
 
     _, dna, lens = batch
-    gpu = eng.fetch(eng.search_refine_async_dna(dna[:256], lens[:256]))
-    cpu_eng = SearchEngine(eng.cfg.replace(query_batch=256), index,
+    gpu = eng.fetch(eng.search_refine_async_dna(dna[:n], lens[:n]))
+    cpu_eng = SearchEngine(eng.cfg.replace(query_batch=n), index,
                            device="cpu", key_table=eng.key_table)
-    cpu = cpu_eng.fetch(cpu_eng.search_refine_async_dna(dna[:256],
-                                                        lens[:256]))
+    cpu = cpu_eng.fetch(cpu_eng.search_refine_async_dna(dna[:n], lens[:n]))
     same = gpu.shape == cpu.shape and bool((gpu == cpu).all())
     return same, int(((cpu[1] >> 15) > 0).sum())
 
@@ -695,6 +833,65 @@ def score_fed_leg(tag: str, cfg, index, batches, kernel: str,
     return launches, shapes
 
 
+def longread_phase(n_short: int):
+    """Long-read mode at database size (config 5 of the golden): index,
+    1 warm + TIMED_LONG timed 128-read batches of 5,000 bp reads from the
+    long proteins, a stage breakdown, the 16-read CPU cross-check. B1's
+    long-row entry must launch."""
+    from ghostm_tpu_torch.config import Config
+    from ghostm_tpu_torch.engine import SearchEngine
+
+    cfg = Config(**LONGREAD)
+    t0 = time.time()
+    index = build_config2_index(n_short, cfg, n_long=N_LONG)
+    t_index = time.time() - t0
+    t0 = time.time()
+    eng = SearchEngine(cfg, index, device="cuda")
+    torch.cuda.synchronize()
+    t_engine = time.time() - t0
+    R = cfg.query_batch
+    batches = make_batches(index, 1 + TIMED_LONG, R, read_len=5000,
+                           source=range(n_short, n_short + N_LONG))
+    emit(phase="longread_setup", subjects=n_short + N_LONG,
+         long_subjects=N_LONG, residues=int(index.total_residues),
+         index_s=t_index, engine_init_s=t_engine, route=eng.route,
+         table_bytes=int(eng.key_table.nbytes), table_width=eng.table_width,
+         nbins=eng.nbins, expand=int(index.expand_width),
+         pack_ok=eng._pack_ok)
+    launches, shapes, per_batch, wall, last, peak = timed_run(eng, batches)
+    n = R * TIMED_LONG
+    hits = int(((last[1] >> 15) > 0).sum())
+    top = last[0][:, 0]
+    names = batches[-1][0]
+    # reads name their source subject ("..._from_subj<i>", i into the
+    # long proteins): the top hit's subject id is n_short + i
+    src = np.array([n_short + int(x.rsplit("subj", 1)[1]) for x in names])
+    same, xhits = crosscheck(eng, index, batches[1], n=16)
+    b1 = {k: v for k, v in shape_counts(shapes).items()
+          if k.startswith("sort_rows")}
+    emit(phase="longread_5kbp", reads=n, read_len=5000, wall_s=wall,
+         reads_per_s=n / wall, batch_ms=per_batch,
+         max_memory_allocated=peak, table_width=eng.table_width,
+         b1_shapes=b1, launches=launches,
+         kernel_launches=per_kernel(launches),
+         shape_launches=shape_counts(shapes), hits=hits,
+         top_hit_is_source=int((top == src).sum()), crosscheck_reads=16,
+         crosscheck_equal=same, crosscheck_hits=xhits)
+    for k in ("sort_rows_tiles", "sort_rows_merge", "sw_fused",
+              "lex_rank_rows"):
+        if launches[k] == 0:
+            raise SystemExit(f"longread_5kbp: kernel {k} was never launched")
+    if launches["sort_vote_rank_rows"] or launches["merge_vote_rank_rows"]:
+        raise SystemExit("longread_5kbp: B2 was launched on chained rows")
+    if not hits:
+        raise SystemExit("longread_5kbp: no hits in the last batch")
+    if not same:
+        raise SystemExit("longread_5kbp: CUDA and CPU engines disagree")
+    emit(phase="longread_5kbp_stages", **stage_breakdown(eng,
+                                                        *batches[1][1:]))
+    return launches, shapes
+
+
 def free_cuda() -> None:
     import gc
 
@@ -723,7 +920,8 @@ def main() -> int:
     ptxas = {n: ptxas_lines(log) for n, log in logs.items()}
     emit(phase="build", seconds=time.time() - t0, ptxas=ptxas)
     entries = kernel_phase(dev)
-    runs = dict(zip(("golden", "golden_b50"), golden_phases()))
+    runs = dict(zip(("golden", "golden_b50", "golden_longread"),
+                    golden_phases()))
     if args.subjects < N_SUBJECTS:
         emit(phase="reduced", subjects=args.subjects, of=N_SUBJECTS,
              why="command-line cut of the subject count")
@@ -745,6 +943,9 @@ def main() -> int:
     runs["scale_b50_250bp"] = score_fed_leg(
         "scale_b50_250bp", cfg, index,
         make_batches(index, 1 + TIMED_B50, 8192, read_len=250), "sw_wave")
+    del index
+    free_cuda()
+    runs["longread_5kbp"] = longread_phase(args.subjects)
     free_cuda()
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_path", "launches_wrapper", "max_abs_err", "ms",
@@ -759,9 +960,13 @@ def main() -> int:
         e["launches"] = by_shape.get((wrapper, *shapes), 0)
         e["launches_wrapper"] = counts[wrapper]
         e["launches_path"] = path
+        if wrapper == "sort_rows_tiles":   # B1's long rows: + merge passes
+            e["launches_merge"] = sum(
+                v for k, v in by_shape.items()
+                if k[0] == "sort_rows_merge" and k[1] == tuple(shapes[0]))
         if e["launches"] == 0:
             raise SystemExit(f"{e['name']}: no launch on its path {path}")
-        out.append({k: e[k] for k in keys})
+        out.append({k: e[k] for k in keys + ("launches_merge",) if k in e})
     emit(phase="done", seconds=time.time() - t_all)
     print(card)
     print(json.dumps({"kernels": out}))

@@ -6,9 +6,11 @@ given, and fails without a GPU. `--pallas`/`--no-pallas` are accepted and
 ignored (a CUDA run always launches the kernels, a CPU run their plain
 versions), so the JAX package's command lines carry over. Every
 `--matrix`, gap cost and `--band` of the JAX package runs (a CUDA run takes
-bands up to 128 and gap costs >= 0). The mesh and multi-process flags, `--check`,
-`--debug-nans`, `--profile`, `--cpu` and `--chain-gamma > 0` are not ported
-yet and are rejected.
+bands up to 128 and gap costs >= 0). Long-read mode runs as in the JAX
+package: `smooth_bins` and `chain_gamma` from `--config` JSON or
+`--chain-gamma`, long reads with `--max-read-len`. The mesh and
+multi-process flags, `--check`, `--debug-nans`, `--profile` and `--cpu` are
+not ported yet and are rejected.
 """
 
 from __future__ import annotations
@@ -67,8 +69,11 @@ def cmd_db(args) -> int:
     log.info("read %d subjects (%.1fs)", len(records), time.time() - t0)
     # Global per-k-mer bucket truncation BEFORE sharding, so the surviving
     # seed set is shard-layout invariant (index/seeds.py).
-    keep = seeds.global_bucket_truncation(
-        [encode_aa(seq) for _, seq in records], cfg.seed_len, cfg.hits_per_seed
+    codes = [encode_aa(seq) for _, seq in records]
+    lens = np.array([len(c) for c in codes], dtype=np.int64)
+    keep = seeds.bucket_keep(
+        np.concatenate(codes) if codes else np.zeros(0, np.int8), lens,
+        cfg.seed_len, cfg.hits_per_seed,
     )
     assign = store.shard_records(records, cfg.shards)
     shards = []
@@ -76,10 +81,9 @@ def cmd_db(args) -> int:
         st = store.build_store(
             [records[i] for i in ids], cfg.sentinel_pad, subject_ids=ids
         )
-        keep_buf = np.zeros(len(st.buffer), dtype=bool)
-        for r, gi in enumerate(ids):
-            kp = keep[gi]
-            keep_buf[st.starts[r] : st.starts[r] + len(kp)] = kp
+        keep_buf = seeds.buffer_keep(
+            keep, lens, cfg.seed_len, ids, st.starts, len(st.buffer)
+        )
         shards.append(
             diskio.IndexShard(
                 st, seeds.build_seed_index(st.buffer, cfg.seed_len, keep_buf)
@@ -160,7 +164,8 @@ def main(argv=None) -> int:
     pa.add_argument("--batch", type=int, default=None)
     pa.add_argument("--max-read-len", type=int, default=120)
     pa.add_argument("--chain-gamma", type=int, default=None,
-                    help="> 0 is not ported yet (rejected)")
+                    help="> 0: collinear seed chaining with this drift "
+                         "penalty (long-read mode)")
     pa.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda (default) launches the CUDA kernels; cpu runs "
                          "their plain PyTorch versions")
@@ -192,8 +197,6 @@ def main(argv=None) -> int:
     for attr, flag in (("data_axis", "--data-axis"), ("db_axis", "--db-axis")):
         if (getattr(args, attr, None) or 1) > 1:
             ap.error(f"{flag} > 1 (the device mesh) is not ported yet")
-    if (getattr(args, "chain_gamma", None) or 0) > 0:
-        ap.error("--chain-gamma > 0 is not ported yet")
     setup_logging(json_lines=args.log_json, verbose=args.verbose)
     return args.fn(args)
 

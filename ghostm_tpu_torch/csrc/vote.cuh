@@ -1,6 +1,7 @@
 // Kernel B2's run-length vote and top ncand, shared by its two entries:
 // merge_vote.cu (the union of two sorted rows) and sort_vote.cu (one row
-// sorted by B1's network; an empty second list).
+// sorted by B1's network; an empty second list). B1's merge passes at long
+// rows (sort_rows.cu) take co_rank alone.
 //
 // A group of NW warps votes one row held sorted in shared memory:
 //  * The valid prefix of each list (keys < BIG) is found by one binary

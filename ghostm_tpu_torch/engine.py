@@ -5,6 +5,8 @@ One batch of raw DNA reads runs, on the engine's device:
   1. six-frame translation (ops.translate.six_frame_translate_torch);
   2. PROPOSE: k-mer keys -> one direct-table row gather per k-mer -> per
      query frame a sort, run-length vote and top-ncand (kernels B1, B2);
+     in long-read mode (smooth_bins, chain_gamma > 0) B1, then the vote
+     with neighbour-bin smoothing or collinear chain scores;
   3. SELECT: the identity with one shard;
   4. ALIGN: window fetch + banded SW from the codes and a score table
      built once per engine: kernel B3 for matrices in the fused kernel's
@@ -20,9 +22,9 @@ runs their plain versions. Both return the same integers as the JAX
 package's engine.
 
 Not ported yet (NotImplementedError at init): indexes that do not fit the
-direct seed-table layout (aligned/CSR modes), more than one shard,
-smooth_bins and chain_gamma > 0. A CUDA engine also refuses bands above
-128, the widest its SW kernels take, and negative gap costs.
+direct seed-table layout (aligned/CSR modes) and more than one shard. A
+CUDA engine also refuses bands above 128, the widest its SW kernels take,
+and negative gap costs.
 
 Pitfalls of the translation from JAX, handled below:
   * gathers: JAX clamps an out-of-range gather index silently; torch
@@ -187,6 +189,8 @@ def propose_shard(
     nbins: int,
     table_width: int,
     presorted_run: int = 0,
+    smooth: bool = False,
+    chain_gamma: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(Qf, ncand) proposals (gsid, lbin, votes), direct-table branch.
 
@@ -225,7 +229,8 @@ def propose_shard(
             keys = torch.where(odd, torch.flip(keys, [2]), keys)
         outs.append(cand_mod.vote_and_rank(
             keys.reshape(qc.shape[0], Lq_eff * table_width), subject_ids,
-            ncand, min_votes, nbins=nbins, presorted_run=presorted_run,
+            ncand, min_votes, smooth=smooth, nbins=nbins,
+            presorted_run=presorted_run, chain_gamma=chain_gamma,
         ))
     g, b, v = (torch.cat(x)[:Qf] for x in zip(*outs))
     return g, b, v
@@ -448,9 +453,6 @@ class SearchEngine:
         if index.buffers.shape[0] != 1:
             raise NotImplementedError("indexes with more than one shard are "
                                       "not ported yet")
-        if cfg.smooth_bins or cfg.chain_gamma:
-            raise NotImplementedError("smooth_bins and chain_gamma > 0 are "
-                                      "not ported yet")
         mat = padded_matrix(cfg.matrix, hard_stop=True)
         words, self.code_limit = sw_fused.build_packed_matrix(mat)
         Lq, band = cfg.query_frame_len, cfg.band_width
@@ -513,6 +515,7 @@ class SearchEngine:
             seed_len=cfg.seed_len, band=cfg.band_width, ncand=C,
             min_votes=cfg.min_votes, nbins=self.nbins,
             table_width=self.table_width, presorted_run=self.table_width,
+            smooth=cfg.smooth_bins, chain_gamma=cfg.chain_gamma,
         )
         sel_g, sel_b, _ = cand_mod.select_global(pg, pb, pv, C)
         return sel_g, sel_b

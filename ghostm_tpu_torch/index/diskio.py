@@ -109,7 +109,7 @@ def merge_shards(index: StackedIndex) -> StackedIndex:
     to what a `db --shards 1` build of the same records would produce.
 
     Why this is sound: the per-k-mer bucket truncation is applied GLOBALLY
-    before sharding (seeds.global_bucket_truncation), so the union of the
+    before sharding (seeds.bucket_keep), so the union of the
     shards' seed sets IS the 1-shard seed set, and the engine's
     shard-invariance contract (SURVEY.md §7.2, tests/test_distributed.py)
     makes the merged search bit-identical to the sharded one. The engine

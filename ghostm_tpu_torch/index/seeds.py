@@ -83,9 +83,8 @@ def _mix(x: np.ndarray) -> np.ndarray:
     return x ^ (x >> np.uint32(16))
 
 
-def global_bucket_truncation(
-    seqs: list, k: int, cap: int
-) -> list:
+def bucket_keep(codes: np.ndarray, lens: np.ndarray, k: int,
+                cap: int) -> np.ndarray:
     """Decide, GLOBALLY and before sharding, which seed positions survive the
     per-k-mer cap (reference analogue: GHOSTM limits hits for high-frequency
     seeds). Survivors are chosen by a deterministic HASH of the global
@@ -96,30 +95,28 @@ def global_bucket_truncation(
     over-full buckets).
 
     Args:
-      seqs: encoded subject sequences in GLOBAL id order.
+      codes: the encoded subjects concatenated in GLOBAL id order (int8).
+      lens: their lengths.
       cap: max kept positions per k-mer bucket (Config.hits_per_seed).
     Returns:
-      per-subject bool arrays, len == max(len(seq)-k+1, 0): keep flags.
+      the keep flags of every subject's max(len - k + 1, 0) windows,
+      concatenated in the same order (buffer_keep maps them into a store).
     """
-    if not seqs:
-        return []
+    lens = np.asarray(lens, np.int64)
     nb = NUM_SEED_AA**k
-    # One vectorised pass: concatenate with k-1 invalid separators so k-mer
-    # windows never cross records (per-record python loops cost minutes at
-    # 570k-record scale).
-    lens = np.array([len(s) for s in seqs], dtype=np.int64)
+    # One vectorised pass: k-1 invalid separators between subjects, so
+    # k-mer windows never cross records (per-record python loops cost
+    # minutes at 570k-record scale).
     sep = k - 1
-    tot = int(lens.sum()) + sep * len(seqs)
+    tot = int(lens.sum()) + sep * len(lens)
     cat = np.full(tot, NUM_SEED_AA, dtype=np.int8)  # invalid filler
     starts = np.cumsum(lens + sep) - (lens + sep)
-    idx = starts.repeat(lens) + _ragged_arange(lens)
-    cat[idx] = np.concatenate([np.asarray(s, np.int8) for s in seqs]) \
-        if len(seqs) > 1 else np.asarray(seqs[0], np.int8)
+    cat[starts.repeat(lens) + _ragged_arange(lens)] = codes
     all_keys = kmer_keys(cat, k) if len(cat) >= k else np.zeros(0, np.int32)
     klens = np.maximum(lens - k + 1, 0)
     key_idx = starts.repeat(klens) + _ragged_arange(klens)
     rec_keys = all_keys[key_idx]                      # per-record valid rows
-    gsid = np.repeat(np.arange(len(seqs), dtype=np.int64), klens)
+    gsid = np.repeat(np.arange(len(lens), dtype=np.int64), klens)
     offset = _ragged_arange(klens)
     prio = _mix(gsid.astype(np.uint32) * np.uint32(1_000_003)
                 + offset.astype(np.uint32))
@@ -133,12 +130,25 @@ def global_bucket_truncation(
     rank[order] = np.arange(len(rec_keys)) - bucket_starts[
         np.clip(sorted_keys, 0, nb)
     ]
-    keep = (rank < cap) & (rec_keys < nb)
-    out, off = [], 0
-    for n in klens:
-        out.append(keep[off : off + n])
-        off += int(n)
-    return out
+    return (rank < cap) & (rec_keys < nb)
+
+
+def buffer_keep(keep: np.ndarray, lens: np.ndarray, k: int, ids,
+                starts: np.ndarray, size: int) -> np.ndarray:
+    """bucket_keep's flags (`keep`, over subjects of lengths `lens` in
+    global id order) as the (size,) bool mask over a store buffer that
+    holds the subjects `ids` (global ids), subject r from starts[r]: the
+    `keep` argument of build_seed_index."""
+    klens = np.maximum(np.asarray(lens, np.int64) - k + 1, 0)
+    first = np.cumsum(klens) - klens
+    ids = np.asarray(ids, np.int64)
+    kl = klens[ids]
+    within = _ragged_arange(kl)
+    mask = np.zeros(size, dtype=bool)
+    mask[np.asarray(starts, np.int64).repeat(kl) + within] = keep[
+        first[ids].repeat(kl) + within
+    ]
+    return mask
 
 
 def _ragged_arange(lens: np.ndarray) -> np.ndarray:
@@ -160,7 +170,7 @@ def build_seed_index(buf: np.ndarray, k: int, keep: np.ndarray | None = None) ->
     """Sort-free CSR build: bincount keys -> cumsum -> stable scatter.
 
     `keep`: optional bool mask over buffer positions (len >= len(buf)-k+1)
-    from global_bucket_truncation, mapped into shard-buffer coordinates.
+    from bucket_keep, mapped into shard-buffer coordinates (buffer_keep).
     """
     keys = kmer_keys(buf, k)
     valid = keys < NUM_SEED_AA**k

@@ -41,8 +41,9 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # not count), so a run can show that its path went through the kernels.
 # SHAPES counts the same launches by (wrapper, input shapes).
 LAUNCHES: Dict[str, int] = dict.fromkeys((
-    "sort_rows", "sort_vote_rank_rows", "merge_vote_rank_rows", "sw_fused",
-    "lex_rank_rows", "sw_scored", "sw_wave",
+    "sort_rows", "sort_rows_tiles", "sort_rows_merge", "sort_vote_rank_rows",
+    "merge_vote_rank_rows", "sw_fused", "lex_rank_rows", "sw_scored",
+    "sw_wave",
 ), 0)
 SHAPES: Counter = Counter()
 

@@ -5,13 +5,15 @@ Every hit is keyed by (subject row, SUBJECT-LOCAL diagonal bin) packed into
 one int32 (row * nbins + bin); votes are counted scatter-free by sorting
 each query frame's keys and run-length counting; each frame keeps its top
 ncand cells by (votes desc, key asc). The branch structure is the JAX
-package's (candidates.py:177-213), so the same shapes reach the same
-kernels: a split sort (B1 twice, then B2's merge entry) when the presorted
-run count is not a power of two and the leading power-of-two part is
->= 1024 keys, else B2's monolithic entry.
+package's (candidates.py:176-228), so the same shapes reach the same
+kernels: without smoothing or chaining, a split sort (B1 twice, then B2's
+merge entry) when the presorted run count is not a power of two and the
+leading power-of-two part is >= 1024 keys, else B2's monolithic entry;
+with either (long-read mode), or where B2's packed top-k cannot cover the
+row, B1 then the row-batched vote (sort.vote_top: the chain scan, the
+neighbour-bin smoothing and the two-reduction top-k).
 
-Not ported yet (raise NotImplementedError): `smooth`, `chain_gamma > 0`
-and the multi-shard select.
+Not ported yet (raises NotImplementedError): the multi-shard select.
 """
 
 from __future__ import annotations
@@ -36,12 +38,10 @@ def vote_and_rank(
     chain_gamma: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """This shard's top-ncand proposals per query frame: (gsid, lbin,
-    votes), each (Q, ncand) int32; gsid/lbin are BIG where votes == 0."""
-    if smooth:
-        raise NotImplementedError("smooth_bins voting is not ported yet")
-    if chain_gamma:
-        raise NotImplementedError("chain_gamma > 0 (collinear chaining) is "
-                                  "not ported yet")
+    votes), each (Q, ncand) int32; gsid/lbin are BIG where votes == 0.
+    smooth: each run also takes its neighbour bins' votes; chain_gamma > 0:
+    collinear chain scores with a drift penalty of chain_gamma votes a bin
+    rank the cells (sort.vote_top)."""
     Q, M = keys.shape
     S = subject_ids.shape[0]
     if S * nbins >= (1 << 31):
@@ -49,9 +49,15 @@ def vote_and_rank(
             f"packed vote keys overflow int32: {S} subjects x {nbins} bins; "
             "use more shards or a wider band"
         )
+    if chain_gamma and chain_gamma * S * nbins + M >= (1 << 31):
+        raise ValueError(
+            f"chain_gamma={chain_gamma} overflows the (max,+) chain scan "
+            f"for {S} subjects x {nbins} bins; use more shards"
+        )
     mv = max(min_votes, 1)
     L = max(1 << max(M - 1, 1).bit_length(), 128)
-    if 2 * L.bit_length() <= 31 and ncand <= sort._LANES:
+    if (not smooth and not chain_gamma and 2 * L.bit_length() <= 31
+            and ncand <= sort._LANES):
         run = presorted_run
         nruns = M // run if run > 1 and M % run == 0 else 0
         m1 = run << (nruns.bit_length() - 1) if nruns else 0
@@ -68,10 +74,11 @@ def vote_and_rank(
                 keys, ncand, mv, presorted_run=presorted_run
             )
     else:
-        # rows too long for the packed in-kernel top-k: B1 sort, then the
-        # plain vote (the two-reduction top-k inside vote_top)
+        # smoothing, chaining, or rows too long for the packed in-kernel
+        # top-k: B1 sort, then the row-batched vote
         top_keys, votes = sort.vote_top(
-            sort.sort_rows(keys, presorted_run=presorted_run), ncand, mv
+            sort.sort_rows(keys, presorted_run=presorted_run), ncand, mv,
+            nbins=nbins, smooth=smooth, chain_gamma=chain_gamma,
         )
     top_row = (top_keys // nbins).clamp(0, S - 1).to(torch.int64)
     pos = votes > 0

@@ -7,7 +7,8 @@ csrc/lex_rank.cu) or raises. Both give the same integers: an integer
 sort's output is unique, and the kernels' tie-breaks are the plain
 versions' tie-breaks.
 
-  B1 sort_rows             ascending sort of each row (torch.sort)
+  B1 sort_rows             ascending sort of each row (torch.sort); rows
+                           past TILE keys as tiles, then merge passes
   B2 sort_vote_rank_rows   sort + run-length vote + top-ncand per row
      merge_vote_rank_rows  the same over the union of two sorted halves
   B4 lex_rank_rows         stable lexicographic multi-operand row sort,
@@ -15,7 +16,8 @@ versions' tie-breaks.
 
 Caller contract (the JAX package's kernels/sort.py): invalid vote keys are
 >= BIG = 2^30 and sort to the row's tail; B1 and B2 pad rows to a power of
-two >= 128 with PAD = INT32_MAX.
+two >= 128 with PAD = INT32_MAX (B1's long rows: their last tile only, in
+shared memory).
 """
 
 from __future__ import annotations
@@ -30,10 +32,14 @@ from ghostm_tpu_torch.kernels import _build
 PAD = 0x7FFFFFFF
 BIG = 1 << 30          # first invalid key value (matches candidates.BIG)
 _LANES = 128           # the top-ncand output width of the JAX kernel
-# bytes of one row in shared memory: above the 48 KB default the CUDA launch
-# opts in (csrc/bitonic.cuh row_smem_ok); 16384 keys cover the merge row of
-# 88-residue frames (84 k-mer positions x 128-wide table rows)
+# bytes of one row in shared memory for B2's entries: above the 48 KB
+# default the CUDA launch opts in (csrc/bitonic.cuh row_smem_ok); 16384 keys
+# cover the merge row of 88-residue frames (84 k-mer positions x 128-wide
+# table rows)
 MAX_SMEM_ROW = 64 << 10
+# B1's longest one-block row; longer rows sort as tiles of TILE keys, then
+# merge passes (csrc/sort_rows.cu)
+TILE = 1 << 14
 # B4's keys and index: (num_keys + 1) x L int32 of shared memory, up to an
 # H100 block's 227 KB opt-in (csrc/lex_rank.cu)
 LEX_SMEM_ROW = 227 << 10
@@ -73,19 +79,82 @@ def _check_row_smem(L: int, arrays: int = 1,
     if L * 4 * arrays > limit:
         raise NotImplementedError(
             f"row length {L} x {arrays} int32 arrays exceeds {limit >> 10} "
-            "KB of shared memory per block: long-read rows are not ported yet"
+            "KB of shared memory per block"
         )
 
 
 # ---------------------------------------------------------------------------
-# plain run-length vote (candidates._per_query, smooth=False, chain_gamma=0)
+# plain run-length vote, collinear chaining and neighbour-bin smoothing
+# (candidates._per_query)
 # ---------------------------------------------------------------------------
 
-def vote_top(k: torch.Tensor, ncand: int, min_votes: int
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """k: (Q, M) int32 packed hit keys, each row SORTED ascending (invalid
-    = BIG and above, at the tail). Returns (keys, votes), each (Q, ncand)
-    int32, by (votes desc, key asc); key BIG where votes == 0. Row-batched
+NEGC = -(1 << 30)      # the chain scan's minus infinity
+
+
+def _shift_in(x: torch.Tensor, d: int, fill) -> torch.Tensor:
+    """x moved d columns right, the first d columns `fill`."""
+    head = torch.full((x.shape[0], d), fill, dtype=x.dtype, device=x.device)
+    return torch.cat([head, x[:, :-d]], dim=1)
+
+
+def _chain(k, votes, first, valid, nbins: int, gamma: int):
+    """Collinear chain scores C[i] = votes[i] + max(0, max over earlier runs
+    j of the same subject row of C[j] - gamma * (k[i] - k[j])), as the
+    first-order (max, +) recurrence RM[i] = max(votes[i] + gamma k[i],
+    RM[i-1] + votes[i]) solved by a segmented Hillis-Steele scan of
+    log2(M) steps, segmented where the subject row changes. gamma * k
+    wraps int32 at invalid (BIG) keys: they are zeroed first, which
+    changes no value the reference keeps (it masks them after)."""
+    Q, M = k.shape
+    zero = torch.zeros_like(k)
+    kv = torch.where(valid, k, zero)
+    row = k // nbins              # invalid (BIG) rows segment alone
+    A = torch.where(valid, votes + gamma * kv, torch.full_like(k, NEGC))
+    B = votes
+    F = torch.cat([torch.ones((Q, 1), dtype=torch.bool, device=k.device),
+                   row[:, 1:] != row[:, :-1]], dim=1)
+    d = 1
+    while d < M:
+        As, Bs, Fs = _shift_in(A, d, NEGC), _shift_in(B, d, 0), \
+            _shift_in(F, d, True)
+        A = torch.maximum(A, torch.where(F, NEGC, As + B))
+        B = torch.where(F, B, Bs + B)
+        F = F | Fs
+        d *= 2
+    same_seg = torch.cat([torch.zeros((Q, 1), dtype=torch.bool,
+                                      device=k.device),
+                          row[:, 1:] == row[:, :-1]], dim=1)
+    rm_ex = torch.where(same_seg, _shift_in(A, 1, NEGC), NEGC)
+    chained = votes + (rm_ex - gamma * kv).clamp_min(0)
+    return torch.where(first, chained, zero)
+
+
+def _smooth(k, votes, first, bnd, idx, next_start, nbins: int):
+    """Each run start also takes the votes of the runs of key +- 1 (the
+    same subject row's neighbour bins, adjacent in sorted order; a bin at
+    0 or nbins - 1 has no neighbour across the row)."""
+    M = k.shape[1]
+    zero = torch.zeros_like(k)
+    rep_idx = torch.cummax(torch.where(bnd, idx, zero), dim=1).values
+    nxt = next_start.clamp(0, M - 1).long()
+    prv = torch.gather(rep_idx, 1, (rep_idx - 1).clamp(0, M - 1).long()
+                       ).long()
+    b = k % nbins
+    add_n = torch.where((torch.gather(k, 1, nxt) == k + 1) & (b + 1 < nbins),
+                        torch.gather(votes, 1, nxt), zero)
+    add_p = torch.where((torch.gather(k, 1, prv) == k - 1) & (b > 0),
+                        torch.gather(votes, 1, prv), zero)
+    return votes + torch.where(first, add_n + add_p, zero)
+
+
+def vote_top(k: torch.Tensor, ncand: int, min_votes: int,
+             nbins: int = 1 << 20, smooth: bool = False,
+             chain_gamma: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k: (Q, M) int32 packed (row * nbins + bin) hit keys, each row SORTED
+    ascending (invalid = BIG and above, at the tail). Returns (keys,
+    votes), each (Q, ncand) int32, by (votes desc, key asc); key BIG where
+    votes == 0. The order of the reference: run-length votes, the chain
+    (chain_gamma > 0), smoothing, min_votes, the top ncand. Row-batched
     port of the JAX package's candidates._per_query."""
     Q, M = k.shape
     dev = k.device
@@ -103,6 +172,10 @@ def vote_top(k: torch.Tensor, ncand: int, min_votes: int
                             [1])
     zero = torch.zeros_like(k)
     votes = torch.where(first, next_start - idx, zero)
+    if chain_gamma > 0:
+        votes = _chain(k, votes, first, valid, nbins, chain_gamma)
+    if smooth:
+        votes = _smooth(k, votes, first, bnd, idx, next_start, nbins)
     votes = torch.where(votes >= min_votes, votes, zero)
     rows = torch.arange(Q, device=dev)
     top_keys, top_votes = [], []
@@ -148,7 +221,9 @@ def sort_rows(x: torch.Tensor, presorted_run: int = 0) -> torch.Tensor:
     torch.sort(x, 1). presorted_run = 2^p > 1: the caller guarantees every
     aligned 2^p block of a row is sorted ascending for even block index
     and descending for odd (the state after bitonic stage p), so the
-    kernel starts at stage p + 1. Replaces the JAX package's
+    kernel starts at stage p + 1. Rows of up to TILE keys sort in one
+    block; longer ones (long reads) in tiles, then merge passes
+    (_sort_rows_long). Replaces the JAX package's
     kernels/sort.py::sort_rows (Pallas _sort_kernel)."""
     if x.device.type == "cpu":
         return sort_rows_plain(x, presorted_run)
@@ -156,10 +231,11 @@ def sort_rows(x: torch.Tensor, presorted_run: int = 0) -> torch.Tensor:
     run = _check_run(M, presorted_run)
     L = _row_len(M)
     _check_cuda(x)
-    _check_row_smem(L)
     out = torch.empty_like(x)
     if Q == 0:
         return out
+    if L > TILE:
+        return _sort_rows_long(x, out, run)
     lib = _build.load("sort_rows")
     fn = lib.ghostm_sort_rows
     fn.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P]
@@ -168,6 +244,46 @@ def sort_rows(x: torch.Tensor, presorted_run: int = 0) -> torch.Tensor:
                     int(_aligned(x, out)), _build.stream_ptr(x.device)),
                  "sort_rows")
     _build.count("sort_rows", x.shape)
+    return out
+
+
+def _sort_rows_long(x: torch.Tensor, out: torch.Tensor,
+                    run: int) -> torch.Tensor:
+    """B1 at rows longer than one block holds (M > TILE): one launch
+    sorts every TILE-key tile of every row with the L = TILE network
+    (the last tile of a row padded in shared memory only), then
+    ceil(log2(tiles)) merge-path passes, each merging pairs of sorted
+    runs of TILE << p keys between `out` and a scratch row array, the
+    last pass into `out`. Each launch counts: "sort_rows_tiles" once,
+    "sort_rows_merge" once a pass."""
+    Q, M = x.shape
+    tiles = -(-M // TILE)
+    passes = (tiles - 1).bit_length()
+    # a tile inside one presorted run is all ascending or all descending,
+    # not a bitonic stage's input: sort it from stage 1
+    first = run.bit_length() if run < TILE else 1
+    tmp = torch.empty_like(x)
+    src = out if passes % 2 == 0 else tmp
+    dst = tmp if src is out else out
+    vec = int(_aligned(x, out, tmp))
+    lib = _build.load("sort_rows")
+    tiles_fn = lib.ghostm_sort_tiles
+    tiles_fn.argtypes = [_P, _P, _I, _I, _I, _I, _P]
+    tiles_fn.restype = _I
+    merge_fn = lib.ghostm_merge_pass
+    merge_fn.argtypes = [_P, _P, _I, _I, _I, _I, _P]
+    merge_fn.restype = _I
+    stream = _build.stream_ptr(x.device)
+    _build.check(tiles_fn(x.data_ptr(), src.data_ptr(), Q, M, first, vec,
+                          stream), "sort_rows (tiles)")
+    _build.count("sort_rows_tiles", x.shape)
+    width = TILE
+    while width < M:
+        _build.check(merge_fn(src.data_ptr(), dst.data_ptr(), Q, M, width,
+                              vec, stream), "sort_rows (merge pass)")
+        _build.count("sort_rows_merge", x.shape, (width,))
+        src, dst = dst, src
+        width *= 2
     return out
 
 

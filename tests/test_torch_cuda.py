@@ -115,6 +115,48 @@ def test_sort_rows_kernel(dev, q, m, run, kind):
     assert torch.equal(got, S.sort_rows_plain(x, presorted_run=run))
 
 
+@pytest.mark.parametrize("q,m,run,kind", [
+    (768, 1725 * 16, 16, "rand"),   # the 5 kbp propose row: 2 tiles, 1 pass
+    (384, 3453 * 16, 16, "rand"),   # 10 kbp: 4 tiles, 2 passes
+    (3, 16385, 0, "rand"),          # one key past a tile (scalar edge)
+    (5, 16384 + 16, 16, "rand"),    # one run past a tile
+    (2, 3 * 16384, 16, "rand"),     # odd tile count: a run with no partner
+    (1, 5 * 16384 + 100, 0, "rand"),   # Q = 1, 5 tiles, 3 passes
+    (1, 1725 * 128, 128, "rand"),   # k = 5, hits_per_seed 128: 14 tiles
+    (2, 32768, 8192, "rand"),       # runs of half a tile: its last stage
+    (2, 32768, 16384, "rand"),      # runs as long as a tile: full tile sort
+    (2, 65536, 32768, "rand"),      # runs longer than a tile
+    (3, 1725 * 16, 16, "big"), (2, 3453 * 16, 16, "few"),
+    (2, 3453 * 16, 16, "ties"), (3, 1725 * 16, 16, "equal"),
+    (4, 1725 * 16, 16, "unaligned"), (3, 16385 * 2, 0, "unaligned"),
+])
+def test_sort_rows_long_kernel(dev, q, m, run, kind):
+    """B1 past one block (M > 16384): the tile sort and its merge passes
+    against torch.sort; one tile launch and ceil(log2(tiles)) passes."""
+    gen = torch.Generator().manual_seed(q + m)
+    x = torch.randint(0, 1 << 26, (q, m), generator=gen, dtype=torch.int32)
+    x[torch.rand((q, m), generator=gen) < 0.2] = BIG
+    if run == 0:
+        x = torch.randint(-(1 << 31), (1 << 31) - 1, (q, m), generator=gen,
+                          dtype=torch.int32)
+    if kind in ("equal", "big", "few", "ties"):
+        x = _fill(x, kind, gen)
+    if run > 1:
+        x = _presorted(x, run)
+    x = x.to(dev)
+    if kind == "unaligned":
+        x = _unaligned(x)
+    before = dict(_build.LAUNCHES)
+    got = S.sort_rows(x, presorted_run=run)
+    torch.cuda.synchronize()
+    tiles = -(-m // S.TILE)
+    assert _build.LAUNCHES["sort_rows_tiles"] == before["sort_rows_tiles"] + 1
+    assert (_build.LAUNCHES["sort_rows_merge"]
+            == before["sort_rows_merge"] + (tiles - 1).bit_length())
+    assert _build.LAUNCHES["sort_rows"] == before["sort_rows"]
+    assert torch.equal(got, S.sort_rows_plain(x, presorted_run=run))
+
+
 @pytest.mark.parametrize("q,m,run,minv,hi,kind", _cases([
     (768, 608, 16, 1, 1 << 10), (40, 96, 1, 1, 64), (16, 640, 128, 2, 1000),
     (9, 4096, 0, 1, 50), (3, 128, 128, 1, 4),
@@ -453,3 +495,42 @@ def test_engine_cuda_equals_cpu_score_fed(dev, tmp_path, frame, band, kernel):
                for k in ("sw_scored", "sw_wave")) == 1
     want = c.fetch(c.search_refine_async_dna(dna, lens))
     np.testing.assert_array_equal(got, want)
+
+
+def test_engine_cuda_equals_cpu_long_read(dev, tmp_path):
+    """Long-read mode (the golden's config: 1728-residue frames, band 64,
+    k = 4, chain_gamma 2) on the golden database plus a poly-A subject,
+    whose AAAA bucket fills hits_per_seed 16: 16-wide table rows, so
+    propose's key rows hold 1725 x 16 keys and take B1's long-row entry.
+    The packed step output on CUDA equals the CPU engine's."""
+    import json
+
+    from ghostm_tpu_torch.cli import main as cli
+    from ghostm_tpu_torch.config import Config
+    from ghostm_tpu_torch.engine import SearchEngine
+    from ghostm_tpu_torch.index.diskio import load_index
+    from ghostm_tpu_torch.io.fasta import read_batches
+
+    gold = os.path.join(os.path.dirname(__file__), "golden")
+    db = tmp_path / "db.fa"
+    with open(os.path.join(gold, "longread_db.fa")) as f:
+        db.write_text(f.read() + ">polyA\n" + "A" * 40 + "\n")
+    with open(os.path.join(gold, "longread_cfg.json")) as f:
+        kw = json.load(f)
+    prefix = str(tmp_path / "idx")
+    assert cli(["db", "-i", str(db), "-o", prefix, "-k", "4"]) == 0
+    idx = load_index(prefix)
+    cfg = Config(**kw)
+    _, dna, lens = next(read_batches(os.path.join(gold, "longread_reads.fa"),
+                                     cfg.query_batch, 5300))
+    g = SearchEngine(cfg, idx, device="cuda")
+    assert g.table_width == 16
+    c = SearchEngine(cfg, idx, device="cpu", key_table=g.key_table)
+    before = dict(_build.LAUNCHES)
+    got = g.fetch(g.search_refine_async_dna(dna, lens))
+    assert _build.LAUNCHES["sort_rows_tiles"] == before["sort_rows_tiles"] + 1
+    assert _build.LAUNCHES["sort_vote_rank_rows"] == before[
+        "sort_vote_rank_rows"]
+    want = c.fetch(c.search_refine_async_dna(dna, lens))
+    np.testing.assert_array_equal(got, want)
+    assert (got[1] >> 15).max() > 0

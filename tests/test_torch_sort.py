@@ -217,6 +217,12 @@ def test_select_global_identity_and_multishard_raises():
     assert sg.tolist() == [[3, BIG]] and sb.tolist() == [[1, BIG]]
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tcand.select_global(g, b, v, 1)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tcand.vote_and_rank(g, torch.arange(4, dtype=torch.int32), 1, 1,
-                            chain_gamma=2)
+    # chained voting is ported: it equals the JAX function
+    keys = torch.tensor([[1, 1, 2, 2, 2, 5, BIG, BIG]], dtype=torch.int32)
+    sid = torch.arange(4, dtype=torch.int32)
+    got = tcand.vote_and_rank(keys, sid, 2, 1, nbins=4, chain_gamma=2)
+    want = jcand.vote_and_rank(jnp.asarray(keys.numpy()),
+                               jnp.asarray(sid.numpy()), 2, 1, False, 4,
+                               chain_gamma=2)
+    for t, j in zip(got, want):
+        _eq(t, j)
