@@ -122,6 +122,10 @@ def cmd_aln(args) -> int:
     if cfg.seed_len != index.seed_len:
         cfg = cfg.replace(seed_len=index.seed_len)
     engine = SearchEngine(cfg, index, device=args.device)
+    log.info("engine: %d shard(s)%s, %s seed tables of width %d",
+             engine.n_shards,
+             " (merged at init)" if engine.merged_colocated else "",
+             engine.table_mode, engine.table_width)
     n = run_search(
         engine,
         read_batches(args.input, cfg.query_batch, args.max_read_len),

@@ -3,8 +3,9 @@
 // Replaces ghostm_tpu/kernels/sort.py::_lex_rank_kernel (entry lex_rank_rows),
 // the per-read hit ranking of engine.rank_reads: 9 int32 operands of
 // (R, 48), ascending on the first 5, the original column as the final key
-// (stable-sort semantics), first 10 columns kept. The reference also ranks
-// 3 operands on 3 keys (the multi-shard select).
+// (stable-sort semantics), first 10 columns kept; and the multi-shard
+// select (candidates.select_global): 3 operands of (6 R, n_shards x 8) on
+// 3 keys, first 8 columns kept.
 //
 // Bound on the H100: device-memory bytes (each operand read once, topk
 // columns written once; ~17 MB at R = 8192). The previous design carried
@@ -18,8 +19,8 @@
 // The payload operands (num_keys .. nops) and the losing columns never
 // move: once a slot's original column is known, each payload value is
 // read by index from the row (just read: L1 or L2) and written out.
-//  * Rows of up to 64 columns at 5 keys (the main path): a warp a row, 8
-//    rows a block, no block barrier. A bitonic network over 64 positions
+//  * Rows of up to 64 columns at 5 keys (the rank) or 3 keys (the
+//    multi-shard select): a warp a row, 8 rows a block, no block barrier. A bitonic network over 64 positions
 //    p = lane + 32 e, each lane holding positions lane and lane + 32 as
 //    (keys, column) tuples in registers: strides below 32 exchange a tuple
 //    with __shfl_xor_sync and keep the smaller or the larger; stride 32
@@ -29,8 +30,7 @@
 //    shared memory) was the alternative: on an H100 at the main shape it
 //    took 0.048 ms to this network's 0.025 (its M x M compares cost 2.3x
 //    the network's 21 steps of 64).
-//  * Longer rows, and any other key count (3 for the multi-shard select,
-//    which no path of the port runs yet): a block a row (L / 2 threads,
+//  * Longer rows, and any other key count: a block a row (L / 2 threads,
 //    at most 1024; the key count read at run time). Shared memory holds
 //    the keys and the index only, (num_keys + 1) x L x 4 bytes; above
 //    48 KB the launch opts in, up to the card's 227 KB (L <= 8192 at 5
@@ -206,5 +206,7 @@ extern "C" int ghostm_lex_rank_rows(const int32_t* ops, int32_t* out, int nops,
                                     int topk, cudaStream_t stream) {
   if (M <= WARP_COLS && num_keys == 5)
     return launch_warp<5>(ops, out, nops, Q, M, topk, stream);
+  if (M <= WARP_COLS && num_keys == 3)
+    return launch_warp<3>(ops, out, nops, Q, M, topk, stream);
   return launch_block(ops, out, nops, Q, M, L, num_keys, topk, stream);
 }

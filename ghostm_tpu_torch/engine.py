@@ -1,54 +1,70 @@
 """Search engine: the per-batch device step + host driver (port of the JAX
-package's engine.py, loop path with one shard).
+package's engine.py, loop path: every shard on the one device).
 
 One batch of raw DNA reads runs, on the engine's device:
   1. six-frame translation (ops.translate.six_frame_translate_torch);
-  2. PROPOSE: k-mer keys -> one direct-table row gather per k-mer -> per
-     query frame a sort, run-length vote and top-ncand (kernels B1, B2);
-     in long-read mode (smooth_bins, chain_gamma > 0) B1, then the vote
-     with neighbour-bin smoothing or collinear chain scores;
-  3. SELECT: the identity with one shard;
-  4. ALIGN: window fetch + banded SW from the codes and a score table
-     built once per engine: kernel B3 for matrices in the fused kernel's
-     nibble range where `fused_ok` holds, else the score-fed route
-     (`score_fed_route`: kernel B5, or B6 at long frames), one launch a
-     batch; their plain versions build score tiles, in chunks;
-  5. RANK: per read the top max_hits by (-score, gsid, frame, qend, s_end)
-     with the original position as the final tie-break (kernel B4);
-  6. REFINE: moves DP + traceback for the ranked hits (plain torch);
+  2. PROPOSE, per shard: k-mer keys -> the seed table's hits per k-mer ->
+     per query frame a sort, run-length vote and top-ncand (kernels B1,
+     B2); in long-read mode (smooth_bins, chain_gamma > 0) B1, then the
+     vote with neighbour-bin smoothing or collinear chain scores;
+  3. SELECT: the global top-ncand over the shards' proposals (kernel B4 on
+     3 keys; the identity with one shard);
+  4. ALIGN, per shard: window fetch + banded SW on the candidates the
+     shard owns, from the codes and a score table built once per engine:
+     kernel B3 for matrices in the fused kernel's nibble range where
+     `fused_ok` holds, else the score-fed route (`score_fed_route`: kernel
+     B5, or B6 at long frames), one launch a shard a batch; their plain
+     versions build score tiles, in chunks;
+  5. RANK: the disjoint-mask merge over shards, then per read the top
+     max_hits by (-score, gsid, frame, qend, s_end) with the original
+     position as the final tie-break (kernel B4);
+  6. REFINE: each hit's window from its shard, moves DP + traceback
+     (plain torch);
   7. the packed (6, R, K) transport the pipeline fetches and unpacks.
 A CUDA engine launches the kernels; a CPU engine (device="cpu", the tests)
 runs their plain versions. Both return the same integers as the JAX
-package's engine.
+package's engine, on any index it runs on one device.
 
-Not ported yet (NotImplementedError at init): indexes that do not fit the
-direct seed-table layout (aligned/CSR modes) and more than one shard. A
-CUDA engine also refuses bands above 128, the widest its SW kernels take,
-and negative gap costs.
+Seed tables (`build_key_tables`), fastest first and one mode for every
+shard: "direct" (one table row per k-mer), "aligned" (bucket-aligned rows
+and a row/count lookup) where a packed value would reach DIRECT_SENT or
+the table would pass DIRECT_TABLE_CAP (split over the shards), and "csr"
+(position-parallel row/offset tables) where the aligned packing overflows
+int32 too, as one long subject makes it. Shards on one device are merged
+into one at init while the merged index still takes the direct table
+(`_merge_fits_direct`; GHOSTM_TPU_MERGE_COLOCATED=0 keeps the loop).
+
+A CUDA engine refuses bands above 128, the widest its SW kernels take,
+and negative gap costs (NotImplementedError at init).
 
 Pitfalls of the translation from JAX, handled below:
   * gathers: JAX clamps an out-of-range gather index silently; torch
     raises on the CPU and faults on CUDA. Every gather index is clamped
-    as JAX would clamp it (table rows, subject rows, frames).
+    as JAX would clamp it (table rows, seed positions, subject rows,
+    frames).
   * int32: JAX without x64 computes in int32 and torch.arange defaults to
     int64. The packed vote keys, the packed top-k and the transport words
-    rely on int32 arithmetic, so every such tensor is made int32.
+    rely on int32 arithmetic, so every such tensor is made int32 (torch's
+    sum of int32 is int64 unless told otherwise).
   * division: `//` and `%` floor in both torch and JAX (the keys are
     non-negative where it matters); the CUDA kernels use no signed
     division.
+  * searchsorted: torch's needs a contiguous sorted sequence of the
+    values' dtype; its default side (left) is JAX's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Tuple
+import os
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from ghostm_tpu_torch.config import Config
-from ghostm_tpu_torch.index.diskio import StackedIndex
+from ghostm_tpu_torch.index.diskio import StackedIndex, merge_shards
 from ghostm_tpu_torch.kernels import candidates as cand_mod
 from ghostm_tpu_torch.kernels import (
     seed_lookup, sort, sw_fused, sw_scored, sw_wave, sw_xla,
@@ -63,10 +79,12 @@ SORT_NUM_KEYS = 5  # (-score, gsid, frame, qend, s_end) — the tie-break spec
 # Direct-table sentinel: pad slots hold this value; any packed value below
 # it is a real position (checked at build).
 DIRECT_SENT = 0x7FF00000
-# Device budget for the direct table ((nb + 1) * W * 4 bytes, nb = 20^k
-# buckets, W = pow2 >= max bucket count): k=5/W=128 is 1.64 GB. The JAX
-# package's default.
-DIRECT_TABLE_CAP = 3 << 30
+# Device budget for the direct tables ((nb + 1) * W * 4 bytes each, nb =
+# 20^k buckets, W = pow2 >= max bucket count): k=5/W=128 is 1.64 GB. Every
+# shard's table lives on the one device, so build_key_tables splits it
+# n_shards ways. The JAX package's default and override (read at import:
+# a run that sets GHOSTM_TPU_DIRECT_TABLE_CAP starts a new process).
+DIRECT_TABLE_CAP = int(os.environ.get("GHOSTM_TPU_DIRECT_TABLE_CAP", 3 << 30))
 
 
 def _round_up(x: int, m: int) -> int:
@@ -124,6 +142,67 @@ def _packed_valmap(st, mult: int, Lq: int) -> np.ndarray:
     return valmap
 
 
+def seed_key_tables(index: StackedIndex, shard: int, nbins: int):
+    """CSR key tables parallel to the shard's (padded) seed-position array:
+    for position positions[j] at subject row r with subject-local offset
+    o, rowbase[j] = r * nbins and localoff[j] = o (int32). The row of each
+    buffer position comes from a per-subject repeat (as in _packed_valmap)
+    in place of the JAX package's searchsorted over every position: the
+    same arrays (a pad entry, position 0, takes row 0 either way)."""
+    st = index.shards[shard].store
+    pos = index.positions[shard].astype(np.int64)
+    S = st.num_subjects
+    if not S:
+        return np.zeros(len(pos), np.int32), pos.astype(np.int32)
+    starts64 = np.asarray(st.starts, np.int64)
+    rep = np.diff(starts64, append=np.int64(len(st.buffer)))
+    rep[0] += starts64[0]
+    row = np.repeat(np.arange(S, dtype=np.int32), rep)[pos]
+    rowbase = (row.astype(np.int64) * nbins).astype(np.int32)
+    localoff = (pos - starts64[row]).astype(np.int32)
+    return rowbase, localoff
+
+
+def aligned_key_tables(index: StackedIndex, shard: int, nbins: int,
+                       half: int, Lq: int, width: int):
+    """Bucket-ALIGNED key table: bucket k's packed values
+    (row * nbins * half + localoff + Lq) start at row astart[k] // width of
+    the (R, width) table, and aux[k] = (astart[k] // width) << cbits |
+    count[k] gives the row and the count in one gather. Returns (tab2d
+    int32, aux int32 (nb + 2,), fits); fits=False when the int32 packing
+    would overflow (the caller falls back to the CSR tables)."""
+    sd = index.shards[shard].seeds
+    st = index.shards[shard].store
+    bs = np.asarray(sd.bucket_starts, np.int64)
+    pos = np.asarray(sd.positions)
+    P = len(pos)
+    counts = np.diff(bs)                      # (nb + 1,)
+    padw = -(-counts // width) * width
+    astart = np.zeros(len(bs), np.int64)
+    np.cumsum(padw, out=astart[1:])
+    nrows_need = max(1, -(-index.expand_width // width))
+    total = int(astart[-1])
+    mult = nbins * half
+    cbits = int(width).bit_length()           # count in [0, width]
+    r_max = (total // width) + nrows_need
+    fits = (
+        len(st.buffer) < (1 << 31)
+        and _packed_value_bound(st, mult, Lq) < (1 << 31)
+        and ((r_max << cbits) | width) < (1 << 31)
+    )
+    if not fits:
+        return None, None, False
+    tab = np.zeros(total + nrows_need * width, np.int32)
+    if P:
+        vals = _packed_valmap(st, mult, Lq)[pos]
+        dshift = (astart[:-1] - bs[:-1]).astype(np.int32)
+        dst = np.arange(P, dtype=np.int32) + np.repeat(dshift, counts)
+        tab[dst] = vals
+    aux = ((astart // width) << cbits) | np.concatenate(
+        [counts, np.zeros(1, np.int64)])
+    return tab.reshape(-1, width), aux.astype(np.int32), True
+
+
 def direct_key_tables(index: StackedIndex, shard: int, nbins: int, half: int,
                       Lq: int, width: int, cap_bytes: int = DIRECT_TABLE_CAP):
     """DIRECT-indexed sentinel table: row k of the (nb + 1, width) table
@@ -155,22 +234,111 @@ def direct_key_tables(index: StackedIndex, shard: int, nbins: int, half: int,
 
 
 def build_key_tables(index: StackedIndex, nbins: int, half: int, Lq: int,
-                     expand: int) -> Tuple[np.ndarray, int]:
-    """The one shard's direct table and its row width (pow2 >= expand,
-    >= 8). Raises NotImplementedError when the index does not fit the
-    direct layout: the JAX package's aligned and CSR fallbacks are not
-    ported yet."""
+                     width: int, expand: int):
+    """Every shard's (tab_main, tab_aux) and the one layout mode they
+    share: (maps, mode, width_used), as the JAX package returns them.
+    Fastest first: "direct" (row width pow2 >= expand, >= 8; tab_aux a
+    1-element dummy) while every shard's table fits its share of
+    DIRECT_TABLE_CAP (split n_shards ways: all live on the one device) and
+    the DIRECT_SENT packing; else "aligned" at `width` (the engine's
+    stepped-down row width) while every shard's packing fits int32; else
+    "csr", each shard's (rowbase, localoff) from seed_key_tables."""
+    n_shards = index.buffers.shape[0]
     dw = 8
     while dw < expand:
         dw *= 2
-    tab, ok = direct_key_tables(index, 0, nbins, half, Lq, dw)
-    if not ok:
-        raise NotImplementedError(
-            "index does not fit the direct seed-table layout (int32 packing "
-            "or the 3 GB table cap); the aligned and CSR table modes are not "
-            "ported yet"
-        )
-    return tab, dw
+    cap = DIRECT_TABLE_CAP // n_shards
+    maps = []
+    for i in range(n_shards):
+        tab, ok = direct_key_tables(index, i, nbins, half, Lq, dw,
+                                    cap_bytes=cap)
+        if not ok:
+            break
+        maps.append((tab, np.zeros(1, np.int32)))
+    else:
+        return maps, "direct", dw
+    maps = []
+    for i in range(n_shards):
+        tab, aux, ok = aligned_key_tables(index, i, nbins, half, Lq, width)
+        if not ok:
+            break
+        maps.append((tab, aux))
+    else:
+        return maps, "aligned", width
+    return [seed_key_tables(index, i, nbins)
+            for i in range(n_shards)], "csr", width
+
+
+def padded_total(index: StackedIndex, width: int) -> int:
+    """Total bucket-aligned table entries over all shards at a row width."""
+    total = 0
+    for sh in index.shards:
+        counts = np.diff(np.asarray(sh.seeds.bucket_starts, np.int64))
+        total += int((-(-counts // width) * width).sum())
+    return total
+
+
+def aligned_width(index: StackedIndex) -> int:
+    """The aligned table's row width: pow2 >= the expansion (>= 64), then
+    halved (down to 32) while bucket padding holds more than twice the
+    raw positions (whole-row gathers cover the expansion in
+    ceil(expand / width) gathers)."""
+    width = 64
+    while width < index.expand_width:
+        width *= 2
+    raw = max(1, sum(len(sh.seeds.positions) for sh in index.shards))
+    while width > 32 and padded_total(index, width) > 2 * raw:
+        width //= 2
+    return width
+
+
+def diag_bins(cfg: Config, index: StackedIndex) -> int:
+    """Subject-local diagonal bins of band / 2 a subject row: enough for
+    the longest subject plus a frame."""
+    return (int(index.lengths.max() + cfg.query_frame_len)
+            // (cfg.band_width // 2) + 2)
+
+
+def key_tables_for(cfg: Config, index: StackedIndex):
+    """The (maps, mode, width) triple a SearchEngine on (cfg, index) builds
+    (build_key_tables at its bins and aligned width); `key_table=` of a
+    second engine on the same index."""
+    return build_key_tables(index, diag_bins(cfg, index),
+                            cfg.band_width // 2, cfg.query_frame_len,
+                            aligned_width(index), index.expand_width)
+
+
+def _merge_fits_direct(index: StackedIndex, cfg: Config) -> bool:
+    """Would the MERGED (1-shard) form of this index still take the direct
+    table? The packed-value bound over merged global-id-ordered rows, the
+    int32 buffer bound and the direct-table byte cap at the merged bucket
+    widths, without merging."""
+    Lq = cfg.query_frame_len
+    mult = diag_bins(cfg, index) * (cfg.band_width // 2)
+    lens = np.concatenate(
+        [np.asarray(s.store.lengths, np.int64) for s in index.shards])
+    ids = np.concatenate(
+        [np.asarray(s.store.subject_ids, np.int64) for s in index.shards])
+    S = len(lens)
+    if not S:
+        return False
+    pad = int(index.shards[0].store.starts[0])
+    total = pad + int((lens + pad).sum())
+    if total >= (1 << 31):
+        return False
+    lens_m = lens[np.argsort(ids, kind="stable")]
+    bound = int(
+        (np.arange(S, dtype=np.int64) * mult + lens_m + pad - 1 + Lq).max())
+    if bound >= DIRECT_SENT:
+        return False
+    counts_m = sum(np.diff(np.asarray(s.seeds.bucket_starts, np.int64))
+                   for s in index.shards)
+    nb = index.shards[0].seeds.num_buckets
+    expand_m = int(counts_m[:nb].max(initial=1))
+    dw = 8
+    while dw < expand_m:
+        dw *= 2
+    return len(counts_m) * dw * 4 <= DIRECT_TABLE_CAP
 
 
 # --------------------------------------------------------------------------
@@ -178,34 +346,51 @@ def build_key_tables(index: StackedIndex, nbins: int, half: int, Lq: int,
 # --------------------------------------------------------------------------
 
 def propose_shard(
-    qflat: torch.Tensor,       # (Qf, Lq) int8 translated frames
-    tab_main: torch.Tensor,    # (nb + 1, table_width) int32 direct table
+    qflat: torch.Tensor,          # (Qf, Lq) int8 translated frames
+    bucket_starts: torch.Tensor,  # (nb + 2,) int32 (csr), else unused
+    tab_main: torch.Tensor,       # the shard's seed table (see mode)
+    tab_aux: torch.Tensor,
     subject_ids: torch.Tensor,
     *,
     seed_len: int,
+    expand: int,
     band: int,
     ncand: int,
     min_votes: int,
     nbins: int,
     table_width: int,
+    mode: str = "direct",
     presorted_run: int = 0,
     smooth: bool = False,
     chain_gamma: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(Qf, ncand) proposals (gsid, lbin, votes), direct-table branch.
+    """(Qf, ncand) proposals (gsid, lbin, votes) of one shard.
+
+    mode (build_key_tables): "direct" gathers one (table_width,) row of
+    packed values a k-mer, valid below DIRECT_SENT, over the first
+    Lq - seed_len + 1 positions (the last seed_len - 1 never host a
+    k-mer); "aligned" gathers the k-mer's row/count word from tab_aux,
+    then ceil(expand / table_width) whole rows from tab_main, the first
+    `count` values valid; "csr" reads the bucket's start and count from
+    bucket_starts and the keys rowbase + (localoff - qpos + Lq) // half
+    from tab_main (rowbase) and tab_aux (localoff) at each of the
+    `expand` slots. The last two run every query position, as in the
+    JAX package.
 
     Chunked over query frames with the JAX package's minimal-pad chunk
     sizing so the expanded (chunk, Lq, width) key tensor stays ~128 MB and
-    the kernels see its shapes ((6144, 4608) keys at config-2).
+    the kernels see its shapes ((6144, 4608) keys at config-2, direct).
 
-    presorted_run = table_width: each (qpos, bucket) run of a key row is
-    ascending by construction; odd qpos runs are flipped to descending so
-    the bitonic kernels skip their first log2(run) stages. The sorted row
-    is the same either way."""
+    presorted_run > 1 (direct: table_width; aligned: expand when it is a
+    power of two >= 8): each (qpos, bucket) run of a key row is ascending
+    by construction; odd qpos runs are flipped to descending so the
+    bitonic kernels skip their first log2(run) stages. The sorted row is
+    the same either way."""
     Qf, Lq = qflat.shape
     dev = qflat.device
     qi = qflat.to(torch.int32)
-    per_frame = Lq * table_width * 4
+    direct = mode == "direct"
+    per_frame = Lq * (table_width if direct else expand) * 4
     qcap = max(128, min(Qf, (128 << 20) // per_frame // 128 * 128))
     nch = -(-Qf // qcap)
     qchunk = max(128, min(qcap, _round_up(-(-Qf // nch), 128)))
@@ -213,22 +398,44 @@ def propose_shard(
     qi_p = torch.cat([qi, torch.full((qpad - Qf, Lq), 25, dtype=torch.int32,
                                      device=dev)])
     half = band // 2
-    # the last seed_len - 1 positions never host a valid k-mer: trimmed
-    Lq_eff = max(Lq - seed_len + 1, 1)
+    Lq_eff = max(Lq - seed_len + 1, 1) if direct else Lq
     qpos = torch.arange(Lq_eff, dtype=torch.int32, device=dev)[None, :, None]
     odd = (qpos & 1) == 1
+    offs = torch.arange(expand, dtype=torch.int32, device=dev)
     nrows = tab_main.shape[0]
     outs = []
     for qc in qi_p.split(qchunk):
         kmers = seed_lookup.query_kmer_keys(qc, seed_len)[:, :Lq_eff]
-        tg = tab_main[kmers.reshape(-1).clamp(0, nrows - 1).to(torch.int64)]
-        tg = tg.reshape(qc.shape[0], Lq_eff, table_width)
-        keys = torch.where(tg < DIRECT_SENT, (tg - qpos) // half,
-                           torch.full_like(tg, BIG))
+        if direct:
+            tg = tab_main[kmers.reshape(-1).clamp(0, nrows - 1).to(torch.int64)]
+            tg = tg.reshape(qc.shape[0], Lq_eff, table_width)
+            keys = torch.where(tg < DIRECT_SENT, (tg - qpos) // half,
+                               torch.full_like(tg, BIG))
+        elif mode == "aligned":
+            cbits = int(table_width).bit_length()
+            aux = tab_aux[kmers.clamp(0, tab_aux.shape[0] - 1).to(torch.int64)]
+            valid = offs < (aux & ((1 << cbits) - 1))[..., None]
+            r = (aux >> cbits).reshape(-1)
+            rows = [tab_main[(r + i).clamp(0, nrows - 1).to(torch.int64)]
+                    for i in range(-(-expand // table_width))]
+            w2 = rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
+            tg = w2[:, :expand].reshape(qc.shape[0], Lq, expand)
+            keys = torch.where(valid, (tg - qpos) // half,
+                               torch.full_like(tg, BIG))
+        else:
+            km = kmers.to(torch.int64)
+            nbs = bucket_starts.shape[0]
+            start = bucket_starts[km.clamp(0, nbs - 1)]
+            count = bucket_starts[(km + 1).clamp(0, nbs - 1)] - start
+            idx = (start[..., None] + offs).clamp(0, nrows - 1)
+            idx = idx.to(torch.int64)
+            lbin = (tab_aux[idx] - qpos + Lq) // half
+            keys = torch.where(offs < count[..., None], tab_main[idx] + lbin,
+                               torch.full_like(lbin, BIG))
         if presorted_run > 1:
             keys = torch.where(odd, torch.flip(keys, [2]), keys)
         outs.append(cand_mod.vote_and_rank(
-            keys.reshape(qc.shape[0], Lq_eff * table_width), subject_ids,
+            keys.reshape(qc.shape[0], -1), subject_ids,
             ncand, min_votes, smooth=smooth, nbins=nbins,
             presorted_run=presorted_run, chain_gamma=chain_gamma,
         ))
@@ -267,6 +474,7 @@ def align_shard(
     qflat: torch.Tensor,       # (Qf, Lq) int8
     buffer: torch.Tensor,      # lead-padded shard buffer, int8
     starts: torch.Tensor,
+    subject_ids: torch.Tensor,  # (S,) int32 global ids, sorted, BIG-padded
     lengths: torch.Tensor,
     matrix: torch.Tensor,
     sel_gsid: torch.Tensor,    # (Qf, C) global top-N candidates
@@ -289,8 +497,10 @@ def align_shard(
     sw_scored.code_table for the score-fed route), table_max its largest
     value.
 
-    srow_identity = S: the caller guarantees subject_ids[:S] == arange(S)
-    (every one-shard index), so the gsid -> row map is the identity.
+    srow_identity = n > 0: the caller guarantees subject_ids[:n] ==
+    arange(n) (every one-shard or merged index), so the gsid -> row map is
+    the identity; 0: the row is the searchsorted of gsid in subject_ids
+    and the shard owns a candidate whose id is there.
 
     route (engine.py:698-759 of the JAX package): "fused" runs B3 on the
     codes in one call; "rows" (B5) and "wave" (B6) run on the codes and
@@ -301,8 +511,14 @@ def align_shard(
     Qf, Lq = qflat.shape
     C = sel_gsid.shape[1]
     S = starts.shape[0]
-    srow = sel_gsid.clamp(0, S - 1)
-    owned = (sel_gsid >= 0) & (sel_gsid < srow_identity)
+    if srow_identity:
+        srow = sel_gsid.clamp(0, S - 1)
+        owned = (sel_gsid >= 0) & (sel_gsid < srow_identity)
+    else:
+        srow = torch.searchsorted(subject_ids, sel_gsid.contiguous())
+        srow = srow.clamp(0, S - 1).to(torch.int32)
+        owned = ((subject_ids[srow.to(torch.int64)] == sel_gsid)
+                 & (sel_gsid < BIG))
     srow_i = srow.to(torch.int64)
     sub_start = starts[srow_i]
     sub_len = lengths[srow_i]
@@ -359,23 +575,29 @@ def rank_reads(score, gsid, frame, qend, s_end, bend, g0, srow, shard,
     return out
 
 
-def merge_rank(aligned, sel_g: torch.Tensor, R: int, K: int) -> torch.Tensor:
-    """One shard's align outputs -> ranked packed (9, R, K) int32 (the JAX
-    package's _merge_rank_jit at one shard: the disjoint-mask merge keeps
-    only live fields)."""
-    score, qend, bend, s_end, g0, srow, owned = aligned
+def merge_rank(stacked, sel_g: torch.Tensor, R: int, K: int) -> torch.Tensor:
+    """The shards' align outputs, each field stacked (n_shards, Qf, C) ->
+    ranked packed (9, R, K) int32 (the JAX package's _merge_rank_jit):
+    each field summed over shards where the shard owns a live hit (the
+    owners are disjoint), the owning shard's id as the shard field, then
+    rank_reads."""
+    score, qend, bend, s_end, g0, srow, owned = stacked
     live = owned & (score > 0)
     zero = torch.zeros_like(score)
-    m = lambda f: torch.where(live, f, zero)
-    C = score.shape[1]
+    tot = lambda f: f.sum(0, dtype=torch.int32)
+    m = lambda f: tot(torch.where(live, f, zero))
+    sid = torch.arange(score.shape[0], dtype=torch.int32,
+                       device=score.device)[:, None, None]
+    score_m = tot(score)   # align_shard zeroes the scores a shard does not own
+    C = score.shape[2]
     M = NFRAMES * C
     rs = lambda a: a.reshape(R, M)
     frame = torch.arange(NFRAMES, dtype=torch.int32, device=score.device
                          ).repeat_interleave(C)[None, :].expand(R, M)
-    gsid = torch.where(score > 0, sel_g, torch.full_like(sel_g, BIG))
+    gsid = torch.where(score_m > 0, sel_g, torch.full_like(sel_g, BIG))
     return rank_reads(
-        rs(score), rs(gsid), frame.contiguous(), rs(m(qend)), rs(m(s_end)),
-        rs(m(bend)), rs(m(g0)), rs(m(srow)), rs(zero), K,
+        rs(score_m), rs(gsid), frame.contiguous(), rs(m(qend)), rs(m(s_end)),
+        rs(m(bend)), rs(m(g0)), rs(m(srow)), rs(m(sid.expand_as(score))), K,
     )
 
 
@@ -421,18 +643,20 @@ class BatchHits:
 
 
 class SearchEngine:
-    """Host driver: owns the device copies of the index and runs the batch
-    step on `device` ("cuda" by default; "cpu" runs the plain versions)."""
+    """Host driver: owns the device copies of the index (one dict of
+    tensors a shard) and runs the batch step on `device` ("cuda" by
+    default; "cpu" runs the plain versions)."""
 
     STAT_KEYS = ("qstart", "qend", "sstart", "send", "length", "matches",
                  "mismatch", "gapopen")
 
     def __init__(self, cfg: Config, index: StackedIndex,
                  device: str | torch.device = "cuda",
-                 key_table: np.ndarray | None = None):
-        """key_table: the direct table build_key_tables made for this
-        (cfg, index) — a caller that runs two engines over one index
-        passes the first engine's `key_table` to skip a second build."""
+                 key_table: tuple | None = None):
+        """key_table: the (maps, mode, width) triple build_key_tables made
+        for this (cfg, index) — a caller that runs two engines over one
+        index passes the first engine's `key_table` to skip a second build
+        (for an index the engine merges, the merged index's tables)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device available: pass "
@@ -450,9 +674,18 @@ class SearchEngine:
                 f"gap costs {cfg.gap_open}/{cfg.gap_extend}: the CUDA SW "
                 "kernels take gap costs >= 0"
             )
-        if index.buffers.shape[0] != 1:
-            raise NotImplementedError("indexes with more than one shard are "
-                                      "not ported yet")
+        # Colocated-shard merge: every shard runs on the one device, so n
+        # shards cost ~n x the propose and align work of one. While the
+        # merged index still takes the direct table, fold the shards into
+        # one at init (the same output by the shard-invariance contract);
+        # otherwise (the reason to shard a one-device index) keep the loop.
+        # GHOSTM_TPU_MERGE_COLOCATED=0 keeps the loop for coverage.
+        self.merged_colocated = False
+        if (index.buffers.shape[0] > 1
+                and os.environ.get("GHOSTM_TPU_MERGE_COLOCATED", "1") != "0"
+                and _merge_fits_direct(index, cfg)):
+            index = merge_shards(index)
+            self.merged_colocated = True
         mat = padded_matrix(cfg.matrix, hard_stop=True)
         words, self.code_limit = sw_fused.build_packed_matrix(mat)
         Lq, band = cfg.query_frame_len, cfg.band_width
@@ -469,24 +702,31 @@ class SearchEngine:
         mem_cap = max(128, (128 << 20) // (Lq * band * 4))
         self.chunk = max(128, min(8192, _round_up(n_sw, 128),
                                   mem_cap // 128 * 128))
-        st = index.shards[0].store
-        S = st.num_subjects
-        if not S or not (np.asarray(st.subject_ids) == np.arange(S)).all():
-            raise NotImplementedError("only one-shard indexes with subject "
-                                      "ids 0..S-1 are ported yet")
         self.cfg = cfg
         self.index = index
-        self.n_shards = 1
+        self.n_shards = index.buffers.shape[0]
         self.lead = lead_pad(cfg)
         self.matrix_np = mat
         self.expand = index.expand_width
-        half = band // 2
-        self.nbins = int(index.lengths.max() + Lq) // half + 2
+        self.nbins = diag_bins(cfg, index)
+        cand_mod.check_vote_keys(index.subject_ids.shape[1], self.nbins)
         if key_table is None:
-            key_table, _ = build_key_tables(index, self.nbins, half, Lq,
-                                            self.expand)
+            key_table = key_tables_for(cfg, index)
+        maps, self.table_mode, self.table_width = key_table
+        if len(maps) != self.n_shards:
+            raise ValueError(f"key_table has {len(maps)} shards, the index "
+                             f"{self.n_shards}")
         self.key_table = key_table
-        self.table_width = key_table.shape[1]
+        # the presorted-run stage skip needs runs that tile power-of-two
+        # blocks of the key row: direct rows always (run = row width),
+        # aligned rows when the expansion is a power of two, CSR rows never
+        e = self.expand
+        self.presorted_run = (
+            self.table_width if self.table_mode == "direct"
+            else e if (self.table_mode == "aligned" and e >= 8
+                       and e & (e - 1) == 0)
+            else 0
+        )
         dev = self.device
         to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
         self.matrix = to(mat.astype(np.int32))
@@ -498,39 +738,56 @@ class SearchEngine:
                                                                band)
         )
         self.sw_table_max = int(self.sw_table.max())
-        self.buffer = to(pad_buffer(index.buffers[0], cfg))
-        self.starts = to(index.starts[0].astype(np.int32))
-        self.subject_ids = to(index.subject_ids[0].astype(np.int32))
-        self.lengths = to(index.lengths[0].astype(np.int32))
-        self.tab_main = to(key_table)
-        self.srow_identity = S
+        self.shard_dev: List[dict] = []
+        for i, (tab_main, tab_aux) in enumerate(maps):
+            st = index.shards[i].store
+            n = st.num_subjects
+            ident = n > 0 and bool(
+                (np.asarray(st.subject_ids) == np.arange(n)).all())
+            self.shard_dev.append(dict(
+                buffer=to(pad_buffer(index.buffers[i], cfg)),
+                bucket_starts=(to(index.bucket_starts[i].astype(np.int32))
+                               if self.table_mode == "csr" else None),
+                starts=to(index.starts[i].astype(np.int32)),
+                subject_ids=to(index.subject_ids[i].astype(np.int32)),
+                lengths=to(index.lengths[i].astype(np.int32)),
+                tab_main=to(tab_main),
+                tab_aux=to(tab_aux),
+                srow_identity=n if ident else 0,
+            ))
 
     # ------------------------------------------------------------------
     def propose(self, qflat: torch.Tensor):
-        """(R*6, Lq) frames -> selected (gsid, lbin), each (R*6, ncand)."""
+        """(R*6, Lq) frames -> selected (gsid, lbin), each (R*6, ncand):
+        every shard's proposals side by side, then the global top-ncand."""
         cfg = self.cfg
         C = cfg.candidates_per_frame
-        pg, pb, pv = propose_shard(
-            qflat, self.tab_main, self.subject_ids,
-            seed_len=cfg.seed_len, band=cfg.band_width, ncand=C,
-            min_votes=cfg.min_votes, nbins=self.nbins,
-            table_width=self.table_width, presorted_run=self.table_width,
+        props = [propose_shard(
+            qflat, d["bucket_starts"], d["tab_main"], d["tab_aux"],
+            d["subject_ids"], seed_len=cfg.seed_len, expand=self.expand,
+            band=cfg.band_width, ncand=C, min_votes=cfg.min_votes,
+            nbins=self.nbins, table_width=self.table_width,
+            mode=self.table_mode, presorted_run=self.presorted_run,
             smooth=cfg.smooth_bins, chain_gamma=cfg.chain_gamma,
-        )
+        ) for d in self.shard_dev]
+        pg, pb, pv = (torch.cat(x, dim=1) for x in zip(*props))
         sel_g, sel_b, _ = cand_mod.select_global(pg, pb, pv, C)
         return sel_g, sel_b
 
     def align(self, qflat: torch.Tensor, sel_g: torch.Tensor,
               sel_b: torch.Tensor):
+        """Each shard's align_shard over the selected candidates, every
+        field stacked (n_shards, Qf, C)."""
         cfg = self.cfg
-        return align_shard(
-            qflat, self.buffer, self.starts, self.lengths, self.matrix,
-            sel_g, sel_b, band=cfg.band_width, gap_open=cfg.gap_open,
-            gap_extend=cfg.gap_extend, lead=self.lead,
-            code_limit=self.code_limit, srow_identity=self.srow_identity,
+        outs = [align_shard(
+            qflat, d["buffer"], d["starts"], d["subject_ids"], d["lengths"],
+            self.matrix, sel_g, sel_b, band=cfg.band_width,
+            gap_open=cfg.gap_open, gap_extend=cfg.gap_extend, lead=self.lead,
+            code_limit=self.code_limit, srow_identity=d["srow_identity"],
             route=self.route, chunk=self.chunk, table=self.sw_table,
             table_max=self.sw_table_max,
-        )
+        ) for d in self.shard_dev]
+        return tuple(torch.stack(x) for x in zip(*outs))
 
     def search_packed(self, qcodes3: torch.Tensor) -> torch.Tensor:
         """propose -> select -> align -> rank on (R, 6, Lq) int8 frames;
@@ -544,29 +801,41 @@ class SearchEngine:
     def refine_packed(self, qcodes3: torch.Tensor,
                       packed: torch.Tensor) -> torch.Tensor:
         """Window fetch + moves DP + traceback for the ranked hits ->
-        (9, R, K) stats, on the device."""
+        (9, R, K) stats, on the device. Each hit's window, span start and
+        end come from the shard in its shard field."""
         cfg = self.cfg
         g0 = packed[6].reshape(-1)
-        srow = packed[7].reshape(-1).clamp(0, self.starts.shape[0] - 1)
-        srow = srow.to(torch.int64)
-        w = fetch_windows(self.buffer, g0, self.lead,
-                          cfg.query_frame_len + cfg.band_width)
-        lo = self.starts[srow]
-        hi = lo + self.lengths[srow]
+        srow = packed[7].reshape(-1)
+        shard = packed[8].reshape(-1)
+        wlen = cfg.query_frame_len + cfg.band_width
+        for si, d in enumerate(self.shard_dev):
+            sr = srow.clamp(0, d["starts"].shape[0] - 1).to(torch.int64)
+            w2 = fetch_windows(d["buffer"], g0, self.lead, wlen)
+            lo2 = d["starts"][sr]
+            hi2 = lo2 + d["lengths"][sr]
+            if si == 0:
+                w, lo, hi = w2, lo2, hi2
+            else:
+                m = shard == si
+                w = torch.where(m[:, None], w2, w)
+                lo = torch.where(m, lo2, lo)
+                hi = torch.where(m, hi2, hi)
         return refine_stats_packed(
             qcodes3, packed, self.matrix, w.to(torch.int32), lo, hi,
             band=cfg.band_width, gap_open=cfg.gap_open,
             gap_extend=cfg.gap_extend,
         )
 
-    def step_dna(self, dna: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    def step_dna(self, dna: torch.Tensor, lens: torch.Tensor,
+                 pack: bool = True) -> torch.Tensor:
         """The whole batch step on device tensors: translate -> search ->
         refine -> (6, R, K) packed transport (or the (18, R, K) payload
-        when the transport cannot hold this config's value ranges)."""
+        when the transport cannot hold this config's value ranges, or
+        when pack is False)."""
         qcodes3 = six_frame_translate_torch(dna, lens, self.cfg.query_frame_len)
         packed = self.search_packed(qcodes3)
         out = torch.cat([packed, self.refine_packed(qcodes3, packed)])
-        return self._pack_transport(out) if self._pack_ok else out
+        return self._pack_transport(out) if pack and self._pack_ok else out
 
     def search_refine_async_dna(self, dna: np.ndarray,
                                 lens: np.ndarray) -> torch.Tensor:

@@ -13,7 +13,9 @@ with either (long-read mode), or where B2's packed top-k cannot cover the
 row, B1 then the row-batched vote (sort.vote_top: the chain scan, the
 neighbour-bin smoothing and the two-reduction top-k).
 
-Not ported yet (raises NotImplementedError): the multi-shard select.
+select_global merges the shards' proposals into the global top-ncand by
+the same key (votes desc, gsid asc, bin asc): kernel B4 on 3 keys, the
+identity with one shard.
 """
 
 from __future__ import annotations
@@ -25,6 +27,19 @@ import torch
 from ghostm_tpu_torch.kernels import sort
 
 BIG = 1 << 30
+
+
+def check_vote_keys(S: int, nbins: int) -> None:
+    """Packed vote keys row * nbins + bin must stay below BIG, the invalid
+    key. The JAX package bounds them by 2^31 instead, and between 2^30 and
+    2^31 its vote drops every subject row past BIG // nbins without a
+    word (one 35,213-aa subject gives 2,205 bins: more than 486,958 rows
+    a shard); here that raises."""
+    if S * nbins > BIG:
+        raise ValueError(
+            f"packed vote keys reach BIG = 2^30, the invalid key: {S} "
+            f"subjects x {nbins} bins; use more shards or a wider band"
+        )
 
 
 def vote_and_rank(
@@ -44,11 +59,7 @@ def vote_and_rank(
     rank the cells (sort.vote_top)."""
     Q, M = keys.shape
     S = subject_ids.shape[0]
-    if S * nbins >= (1 << 31):
-        raise ValueError(
-            f"packed vote keys overflow int32: {S} subjects x {nbins} bins; "
-            "use more shards or a wider band"
-        )
+    check_vote_keys(S, nbins)
     if chain_gamma and chain_gamma * S * nbins + M >= (1 << 31):
         raise ValueError(
             f"chain_gamma={chain_gamma} overflows the (max,+) chain scan "
@@ -90,13 +101,17 @@ def vote_and_rank(
 
 def select_global(gsid: torch.Tensor, lbin: torch.Tensor, votes: torch.Tensor,
                   ncand: int):
-    """Global top-ncand over all shards' proposals. With one shard,
-    vote_and_rank already emits the global order (votes desc, gsid asc,
-    bin asc) with gsid/lbin BIG-masked at votes == 0, so the merge is the
+    """Global top-ncand over all shards' proposals, (Q, n_shards * ncand)
+    each, by (votes desc, gsid asc, bin asc): any candidate of the global
+    top-ncand is in its own shard's top-ncand, so this is exactly the
+    one-index selection. gsid/lbin are BIG where votes == 0. Ranked by B4
+    (sort.lex_rank_rows) on (-votes, gsid, lbin), 3 keys; with one shard,
+    vote_and_rank already emits the global order, so the merge is the
     identity."""
-    if gsid.shape[1] != ncand:
-        raise NotImplementedError("multi-shard select_global is not ported "
-                                  "yet")
     big = torch.full_like(gsid, BIG)
     pos = votes > 0
-    return torch.where(pos, gsid, big), torch.where(pos, lbin, big), votes
+    g, b = torch.where(pos, gsid, big), torch.where(pos, lbin, big)
+    if gsid.shape[1] == ncand:
+        return g, b, votes
+    nv, sg, sb = sort.lex_rank_rows(torch.stack((-votes, g, b)), 3, ncand)
+    return sg, sb, -nv

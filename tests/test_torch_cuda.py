@@ -266,6 +266,11 @@ def _lex_ops(gen, kind, q, m, nk, nops):
     (77, 48, 1, 4, 10, "ties"), (77, 48, 9, 9, 10, "ties"),   # other
     (77, 64, 2, 2, 64, "sentinel"), (9, 300, 7, 8, 12, "ties"),  # counts
     (5, 2, 5, 9, 10, "ties"),
+    # the multi-shard select: 3 keys, top 8 of n_shards x 8 columns (the
+    # 3-key warp instance up to 64 columns, the block kernel above)
+    (49152, 16, 3, 3, 8, "ties"), (100, 24, 3, 3, 8, "ties"),
+    (100, 64, 3, 3, 8, "ties"), (300, 16, 3, 3, 8, "sentinel"),
+    (60, 100, 3, 3, 8, "ties"),
 ]))
 def test_lex_rank_kernel(dev, q, m, nk, nops, topk, kind):
     gen = torch.Generator().manual_seed(q + m)
@@ -534,3 +539,49 @@ def test_engine_cuda_equals_cpu_long_read(dev, tmp_path):
     want = c.fetch(c.search_refine_async_dna(dna, lens))
     np.testing.assert_array_equal(got, want)
     assert (got[1] >> 15).max() > 0
+
+
+@pytest.mark.parametrize("shards,merge,tables", [
+    (1, "1", "aligned"), (1, "1", "csr"), (2, "0", "direct"),
+    (2, "0", "csr"), (2, "1", "direct"),
+])
+def test_engine_cuda_equals_cpu_tables_and_shards(dev, tmp_path, monkeypatch,
+                                                  shards, merge, tables):
+    """The golden config-1 index with aligned or CSR seed tables (forced:
+    a 1 KB direct-table cap, a packed-value bound past int32), and at 2
+    shards merged at init or through the per-shard loop: the (18, R, K)
+    payload on CUDA equals the CPU engine's. The loop's select launches
+    B4's 3-key rows, (3, 768, 16); a merged index launches none."""
+    from ghostm_tpu_torch import engine as E
+    from ghostm_tpu_torch.cli import main as cli
+    from ghostm_tpu_torch.config import Config
+    from ghostm_tpu_torch.index.diskio import load_index
+    from ghostm_tpu_torch.io.fasta import read_batches
+
+    gold = os.path.join(os.path.dirname(__file__), "golden")
+    prefix = str(tmp_path / "idx")
+    assert cli(["db", "-i", os.path.join(gold, "config1_db.fa"), "-o",
+                prefix, "--shards", str(shards)]) == 0
+    monkeypatch.setenv("GHOSTM_TPU_MERGE_COLOCATED", merge)
+    if tables == "aligned":
+        monkeypatch.setattr(E, "DIRECT_TABLE_CAP", 1024)
+    elif tables == "csr":
+        monkeypatch.setattr(E, "_packed_value_bound", lambda *a: 1 << 40)
+    idx = load_index(prefix)
+    cfg = Config(query_batch=128)
+    _, dna, lens = next(read_batches(os.path.join(gold, "config1_reads.fa"),
+                                     128, 120))
+    g = E.SearchEngine(cfg, idx, device="cuda")
+    assert g.table_mode == tables
+    assert g.n_shards == (shards if merge == "0" else 1)
+    c = E.SearchEngine(cfg, idx, device="cpu", key_table=g.key_table)
+    _build.reset_launches()
+    got = g.step_dna(torch.from_numpy(dna).to(dev),
+                     torch.from_numpy(lens).to(dev), pack=False).cpu()
+    select = _build.SHAPES[("lex_rank_rows", (3, 768, 16))]
+    assert select == (1 if g.n_shards == 2 else 0)
+    assert _build.LAUNCHES["sw_fused"] == g.n_shards
+    want = c.step_dna(torch.from_numpy(dna), torch.from_numpy(lens),
+                      pack=False)
+    assert int(want[0].max()) > 0
+    assert torch.equal(got, want)

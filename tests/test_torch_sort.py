@@ -215,8 +215,14 @@ def test_select_global_identity_and_multishard_raises():
     v = torch.tensor([[2, 0]], dtype=torch.int32)
     sg, sb, sv = tcand.select_global(g, b, v, 2)
     assert sg.tolist() == [[3, BIG]] and sb.tolist() == [[1, BIG]]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tcand.select_global(g, b, v, 1)
+    # the multi-shard merge is ported: two proposals into the top 1 equal
+    # the JAX function's
+    got = tcand.select_global(g, b, v, 1)
+    want = jcand.select_global(jnp.asarray(g.numpy()), jnp.asarray(b.numpy()),
+                               jnp.asarray(v.numpy()), 1)
+    assert got[0].tolist() == [[3]]
+    for t, j in zip(got, want):
+        _eq(t, j)
     # chained voting is ported: it equals the JAX function
     keys = torch.tensor([[1, 1, 2, 2, 2, 5, BIG, BIG]], dtype=torch.int32)
     sid = torch.arange(4, dtype=torch.int32)

@@ -1,0 +1,326 @@
+"""The port's seed-key tables against the JAX package's: the CSR tables
+(seed_key_tables), the bucket-aligned tables (aligned_key_tables), the
+layout fallback of build_key_tables (mode, width and every array), the
+aligned width step-down, propose_shard's aligned and CSR branches on the
+same frames, and the engine's packed (18, R, K) output with aligned and
+with CSR tables. Tables are forced the way the JAX package's tests force
+them: DIRECT_TABLE_CAP lowered (aligned), _packed_value_bound raised
+(CSR), in both engine modules; and, unforced, a database with one
+35,213-aa subject takes the CSR tables (and, at 2 shards, the per-shard
+loop) through both CLIs. Tolerance 0."""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ghostm_tpu import engine as jengine
+from ghostm_tpu.cli import main as jcli
+from ghostm_tpu.config import Config as JConfig
+from ghostm_tpu.index import diskio as jdiskio
+from ghostm_tpu.index import seeds as jseeds
+from ghostm_tpu.index import store as jstore
+from ghostm_tpu.io.fasta import read_batches
+from ghostm_tpu.ops.encode import encode_aa
+from ghostm_tpu.ops.translate import six_frame_translate
+from ghostm_tpu_torch import engine as tengine
+from ghostm_tpu_torch.cli import main as tcli
+from ghostm_tpu_torch.config import Config as TConfig
+from ghostm_tpu_torch.index import diskio as tdiskio
+from tools.simulate import random_proteins, reads_from_proteins, write_fasta
+
+# One intra-op thread: the suite runs several pytest workers at once.
+torch.set_num_threads(1)
+
+GOLD = os.path.join(os.path.dirname(__file__), "golden")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# hits 16: expansion 16, a power of two (aligned rows keep the presorted
+# run); hits 12: expansion 12, no run; hits 64: two 32-wide aligned rows
+# a k-mer (the width steps down below the expansion)
+HITS = (16, 12, 64)
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    d = tmp_path_factory.mktemp("tables")
+    rng = np.random.default_rng(21)
+    prots = random_proteins(rng, 40, 60, 220)
+    prots += ["A" * 150, "AAAG" * 40]   # deep k-mer buckets
+    write_fasta(str(d / "db.fa"), [f"s{i}" for i in range(len(prots))], prots)
+    names, reads = reads_from_proteins(rng, prots, 40, read_len=100)
+    write_fasta(str(d / "reads.fa"), names, reads)
+    return d
+
+
+@pytest.fixture(scope="module")
+def indexes(data):
+    """(hits, shards) -> (prefix, JAX index, port index), built once."""
+    import json
+
+    out = {}
+    for hits in HITS:
+        cfgf = data / f"cfg{hits}.json"
+        cfgf.write_text(json.dumps({"hits_per_seed": hits}))
+        for shards in (1, 2):
+            prefix = str(data / f"idx{hits}_{shards}")
+            assert jcli(["db", "-i", str(data / "db.fa"), "-o", prefix, "-k",
+                         "3", "--shards", str(shards), "--config",
+                         str(cfgf)]) == 0
+            out[hits, shards] = (prefix, jdiskio.load_index(prefix),
+                                 tdiskio.load_index(prefix))
+    return out
+
+
+def _force(monkeypatch, mode):
+    """Make both engine modules pick `mode` ("aligned": a 1 KB direct-table
+    cap; "csr": a packed-value bound past int32)."""
+    for mod in (jengine, tengine):
+        if mode == "aligned":
+            monkeypatch.setattr(mod, "DIRECT_TABLE_CAP", 1024)
+        elif mode == "csr":
+            monkeypatch.setattr(mod, "_packed_value_bound",
+                                lambda *a: 1 << 40)
+
+
+def _geometry(idx, cfg):
+    half = cfg.band_width // 2
+    nbins = int(idx.lengths.max() + cfg.query_frame_len) // half + 2
+    return nbins, half, cfg.query_frame_len
+
+
+@pytest.mark.parametrize("hits", HITS)
+@pytest.mark.parametrize("shards", [1, 2])
+def test_csr_and_aligned_tables_equal_jax(indexes, hits, shards):
+    _, jidx, tidx = indexes[hits, shards]
+    nbins, half, Lq = _geometry(tidx, TConfig())
+    for i in range(shards):
+        for t, j in zip(tengine.seed_key_tables(tidx, i, nbins),
+                        jengine.seed_key_tables(jidx, i, nbins)):
+            assert t.dtype == j.dtype == np.int32
+            np.testing.assert_array_equal(t, j)
+        for width in (32, 64, 128):
+            tt, ta, tok = tengine.aligned_key_tables(tidx, i, nbins, half,
+                                                     Lq, width)
+            jt, ja, jok = jengine.aligned_key_tables(jidx, i, nbins, half,
+                                                     Lq, width)
+            assert tok and jok
+            np.testing.assert_array_equal(tt, jt)
+            np.testing.assert_array_equal(ta, ja)
+            assert tt.dtype == ta.dtype == np.int32
+
+
+@pytest.mark.parametrize("mode", ["direct", "aligned", "csr"])
+@pytest.mark.parametrize("shards", [1, 2])
+def test_build_key_tables_equal_jax(indexes, monkeypatch, mode, shards):
+    """Mode, width and every shard's arrays, as build_key_tables returns
+    them in each layout (the width the engine steps down to)."""
+    _, jidx, tidx = indexes[16, shards]
+    _force(monkeypatch, mode)
+    nbins, half, Lq = _geometry(tidx, TConfig())
+    width = tengine.aligned_width(tidx)
+    tmaps, tmode, tw = tengine.build_key_tables(tidx, nbins, half, Lq, width,
+                                                tidx.expand_width)
+    jmaps, jmode, jw = jengine.build_key_tables(jidx, nbins, half, Lq, width,
+                                                jidx.expand_width)
+    assert (tmode, tw) == (jmode, jw) and tmode == mode
+    assert len(tmaps) == len(jmaps) == shards
+    for tm, jm in zip(tmaps, jmaps):
+        for t, j in zip(tm, jm):
+            np.testing.assert_array_equal(t, j)
+
+
+def test_merge_fits_direct_equals_jax(indexes, monkeypatch):
+    for shards in (1, 2):
+        _, jidx, tidx = indexes[64, shards]
+        for cap in (3 << 30, 1 << 20, 1024):
+            for mod in (jengine, tengine):
+                monkeypatch.setattr(mod, "DIRECT_TABLE_CAP", cap)
+            for band in (32, 16):
+                want = jengine._merge_fits_direct(jidx,
+                                                  JConfig(band_width=band))
+                assert tengine._merge_fits_direct(
+                    tidx, TConfig(band_width=band)) == want
+
+
+def test_table_width_guard():
+    """Port of tests/test_index.py::test_table_width_guard: the aligned
+    width steps down to 32 when bucket padding would pass 2x the raw
+    positions, and a dense index keeps the full-expansion width; the same
+    widths as the JAX engine's."""
+    aas = "ARNDCQEGHILKMFPSTWYV"
+    rng = np.random.default_rng(0)
+    cfg = JConfig(seed_len=4, hits_per_seed=64, query_batch=128)
+    diverse = [(f"s{i}", "".join(rng.choice(list(aas), 40)).encode())
+               for i in range(150)]
+    dense = [(f"t{i}", b"ACDEFGHIKL" * 400) for i in range(4)]
+    for records, want in ((diverse, 32), (dense, 64)):
+        keep = jseeds.global_bucket_truncation(
+            [encode_aa(s) for _, s in records], cfg.seed_len,
+            cfg.hits_per_seed)
+        st = jstore.build_store(records, cfg.sentinel_pad,
+                                subject_ids=list(range(len(records))))
+        kb = np.zeros(len(st.buffer), dtype=bool)
+        for r in range(len(records)):
+            kb[st.starts[r]: st.starts[r] + len(keep[r])] = keep[r]
+        shard = jdiskio.IndexShard(
+            st, jseeds.build_seed_index(st.buffer, cfg.seed_len, kb))
+        jidx = jdiskio.stack_shards([shard], cfg.seed_len)
+        tidx = tdiskio.index_from_arrays(jidx)
+        jeng = jengine.SearchEngine(cfg, jidx, use_pallas=False)
+        assert tengine.aligned_width(tidx) == jeng._table_width == want
+        if want == 32:
+            assert (tengine.padded_total(tidx, 32)
+                    < tengine.padded_total(tidx, 64))
+        for w in (32, 64):
+            assert tengine.padded_total(tidx, w) == jeng._padded_total(w)
+
+
+def _frames(data, n=24):
+    _, dna, lens = next(read_batches(str(data / "reads.fa"), 64, 120))
+    q = six_frame_translate(dna[:n], lens[:n], 40)
+    return q.reshape(-1, 40)
+
+
+@pytest.mark.parametrize("mode", ["aligned", "csr"])
+@pytest.mark.parametrize("hits", HITS)
+def test_propose_shard_branches_equal_jax(data, indexes, monkeypatch, mode,
+                                          hits):
+    """propose_shard's aligned and CSR branches (the port's presorted run
+    as its engine sets it) against the JAX propose_shard on the XLA path,
+    shard by shard of a 2-shard index."""
+    _, jidx, tidx = indexes[hits, 2]
+    _force(monkeypatch, mode)
+    cfg = TConfig(hits_per_seed=hits)
+    nbins, half, Lq = _geometry(tidx, cfg)
+    width = tengine.aligned_width(tidx)
+    maps, got_mode, tw = tengine.build_key_tables(tidx, nbins, half, Lq,
+                                                  width, tidx.expand_width)
+    assert got_mode == mode
+    expand = tidx.expand_width
+    if mode == "aligned" and hits == 64:
+        assert expand > tw, "want more than one aligned row a k-mer"
+    run = expand if (mode == "aligned" and expand >= 8
+                     and expand & (expand - 1) == 0) else 0
+    q = _frames(data)
+    for i, (tab_main, tab_aux) in enumerate(maps):
+        kw = dict(seed_len=3, expand=expand, band=32, ncand=8, min_votes=1,
+                  nbins=nbins, table_width=tw)
+        got = tengine.propose_shard(
+            torch.from_numpy(q), torch.from_numpy(tidx.bucket_starts[i]),
+            torch.from_numpy(tab_main), torch.from_numpy(tab_aux),
+            torch.from_numpy(tidx.subject_ids[i]), mode=mode,
+            presorted_run=run, **kw)
+        want = jengine.propose_shard(
+            jnp.asarray(q), jnp.asarray(jidx.bucket_starts[i]),
+            jnp.asarray(tab_main), jnp.asarray(tab_aux),
+            jnp.asarray(jidx.subject_ids[i]),
+            fuse_tables=mode == "aligned", **kw)
+        assert int(want[2].max()) > 0, "no votes: the comparison is vacuous"
+        for t, j in zip(got, want):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+@pytest.mark.parametrize("mode", ["aligned", "csr"])
+@pytest.mark.parametrize("hits", [16, 64])
+def test_engine_tables_equal_jax(data, indexes, monkeypatch, mode, hits):
+    """The whole step with aligned or CSR tables: the port's (18, R, K)
+    payload equals the JAX engine's."""
+    _, jidx, tidx = indexes[hits, 1]
+    _force(monkeypatch, mode)
+    _, dna, lens = next(read_batches(str(data / "reads.fa"), 64, 120))
+    dna, lens = dna[:40], lens[:40]
+    jeng = jengine.SearchEngine(JConfig(hits_per_seed=hits, query_batch=40),
+                                jidx, use_pallas=False)
+    assert jeng.table_mode == mode
+    want = np.asarray(jeng.search_refine_async(jeng.translate(dna, lens)))
+    teng = tengine.SearchEngine(TConfig(hits_per_seed=hits, query_batch=40),
+                                tidx, device="cpu")
+    assert teng.table_mode == mode
+    got = teng.step_dna(torch.from_numpy(dna), torch.from_numpy(lens),
+                        pack=False).numpy()
+    assert got.shape == want.shape == (18, 40, 10)
+    assert got[0].max() > 0, "no hits: the comparison is vacuous"
+    np.testing.assert_array_equal(got, want)
+
+
+def test_direct_table_cap_fallback(tmp_path, monkeypatch):
+    """Port of tests/test_index.py::test_direct_table_cap_fallback through
+    the port's CLI: with the direct-table cap at 1 KB the engine takes the
+    aligned tables and writes the config-1 golden byte for byte."""
+    prefix = str(tmp_path / "idx")
+    assert tcli(["db", "-i", os.path.join(GOLD, "config1_db.fa"), "-o",
+                 prefix]) == 0
+    monkeypatch.setattr(tengine, "DIRECT_TABLE_CAP", 1024)
+    eng = tengine.SearchEngine(TConfig(query_batch=128),
+                               tdiskio.load_index(prefix), device="cpu")
+    assert eng.table_mode == "aligned"
+    out = str(tmp_path / "hits.tsv")
+    assert tcli(["aln", "-d", prefix, "-i",
+                 os.path.join(GOLD, "config1_reads.fa"), "-o", out,
+                 "--device", "cpu", "--batch", "128"]) == 0
+    with open(out) as f, open(os.path.join(GOLD, "config1_hits.tsv")) as g:
+        assert f.read() == g.read()
+
+
+def test_direct_table_cap_env():
+    """GHOSTM_TPU_DIRECT_TABLE_CAP sets DIRECT_TABLE_CAP when the engine
+    module is imported, as in the JAX package."""
+    env = dict(os.environ, GHOSTM_TPU_DIRECT_TABLE_CAP="1024")
+    out = subprocess.run(
+        [sys.executable, "-c", "import ghostm_tpu_torch.engine as e; "
+         "print(e.DIRECT_TABLE_CAP)"],
+        cwd=ROOT, env=env, capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["1024"]
+    assert tengine.DIRECT_TABLE_CAP == jengine.DIRECT_TABLE_CAP
+
+
+@pytest.fixture(scope="module")
+def long_tail(tmp_path_factory):
+    """62,000 proteins of 30 aa and one of 35,213 (Swiss-Prot's longest):
+    62,001 rows x (35,213 + Lq + band) packs past int32, so one shard takes
+    the CSR tables without forcing, and a 2-shard index fails the merge
+    check (each shard alone still takes the direct table). Reads from the
+    long protein and from short ones."""
+    d = tmp_path_factory.mktemp("tail")
+    rng = np.random.default_rng(35213)
+    aas = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
+    short = aas[rng.integers(0, 20, (62_000, 30))].view("S30").ravel()
+    prots = [p.decode() for p in short] + [
+        aas[rng.integers(0, 20, 35_213)].tobytes().decode()]
+    write_fasta(str(d / "db.fa"), [f"s{i}" for i in range(len(prots))], prots)
+    names, reads = reads_from_proteins(rng, prots[-1:] * 30 + prots[:10], 40,
+                                       read_len=100)
+    write_fasta(str(d / "reads.fa"), names, reads)
+    return d
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_long_subject_tables_cli(long_tail, tmp_path, shards):
+    """The port's CLI on an index with a realistic length tail writes the
+    JAX package's table byte for byte: CSR tables at 1 shard; at 2 shards
+    the per-shard loop (the merged packing would overflow)."""
+    d = long_tail
+    prefix = str(tmp_path / "idx")
+    assert tcli(["db", "-i", str(d / "db.fa"), "-o", prefix, "--shards",
+                 str(shards)]) == 0
+    cfg = TConfig(query_batch=40)
+    teng = tengine.SearchEngine(cfg, tdiskio.load_index(prefix), device="cpu")
+    jeng = jengine.SearchEngine(JConfig(query_batch=40),
+                                jdiskio.load_index(prefix), use_pallas=False)
+    want_mode = "csr" if shards == 1 else "direct"
+    assert teng.table_mode == jeng.table_mode == want_mode
+    assert teng.n_shards == jeng.n_shards == shards
+    outs = []
+    for cli in (tcli, jcli):
+        out = str(tmp_path / f"{cli.__module__}.tsv")
+        assert cli(["aln", "-d", prefix, "-i", str(d / "reads.fa"), "-o",
+                    out, "--batch", "40", "--no-pallas"]
+                   + (["--device", "cpu"] if cli is tcli else [])) == 0
+        with open(out) as f:
+            outs.append(f.read())
+    assert outs[0] == outs[1]
+    assert "\ts62000\t" in outs[0], "no hit on the long subject"
