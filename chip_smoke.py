@@ -40,6 +40,15 @@ Phases, each printing one JSON line ({"phase": ...}):
            B3 twice, B4's 3-key select rows), and the 1-shard index with
            GHOSTM_TPU_DIRECT_TABLE_CAP=1024 (aligned tables, in a process
            of its own); each byte-compared with config1_hits.tsv;
+  golden_debug_{check,sync,profile}  the config-1 golden through the
+           port's `aln` (cli.main, the entry of `python -m
+           ghostm_tpu_torch`) on CUDA in a process of its own, three more
+           times: with `--check` (the checked pass launches
+           B2, B3 and B4 again: twice the plain golden's launches), with
+           GHOSTM_TPU_SYNC_PIPELINE=1 at 32 reads a batch, and with
+           `--profile DIR` and GHOSTM_TPU_HBM_LOG=FILE (the trace must be
+           non-empty, the log must hold the four keys with
+           peak_bytes_in_use > 0); each byte-compared with config1_hits.tsv;
   golden_longread  `db` + `aln --config tests/golden/longread_cfg.json
            --max-read-len 5300` (5 kbp reads, collinear chaining: B1, the
            chained vote, B3, B4), byte-compared with
@@ -49,8 +58,14 @@ Phases, each printing one JSON line ({"phase": ...}):
            100 bp reads in 8192-read batches through
            SearchEngine.search_refine_async_dna with a background fetch
            (1 warm + 5 timed), then the same batches through the
-           pipeline writing m8; a 256-read batch cross-checked against the
-           same engine on device="cpu";
+           pipeline writing m8 (`scale_pipeline`: the one-time set-up, the
+           name map and its arena, apart; per batch the fetch + unpack,
+           the vectorised columns, the formatting and the write, median /
+           min / max; every batch through the native writer, or the phase
+           fails), then one batch's rows formatted by both routes, native
+           and Python (`scale_m8_routes`: each route's ms, the bytes
+           equal); a 256-read batch cross-checked against the same engine
+           on device="cpu";
   scale_b50  the same index and reads scored with BLOSUM50 13/2 (the
            score-fed route, B5; 1 warm + 3 timed batches, a stage
            breakdown, the 256-read CPU cross-check);
@@ -88,7 +103,11 @@ kernel of that path must have launched in its run. The wrappers also
 count launches by input shape (`_build.SHAPES`): each `kernels` row
 reports the launches of its own shape on its path (`launches`) beside the
 wrapper's count at all shapes (`launches_wrapper`), and a row whose shape
-was never launched there fails the run. Then a line with the
+was never launched there fails the run. The seed indexes are built by
+the native counting sort (`kmer_csr`; its seconds in `scale_setup`,
+`longread_setup` and the tail child's `seed_index_s`, beside
+`bucket_keep`'s): a host-code call that took the Python route
+(ghostm_tpu_torch.native.CALLS) fails the run. Then a line with the
 card's name and power limit, a line {"kernels": [...]}, and last
 {"ok": true, "device": ...}. Any mismatch or exception exits non-zero; so
 does a host without CUDA.
@@ -737,6 +756,7 @@ def golden_phases():
             ("sort_vote_rank_rows", "sw_scored", "lex_rank_rows"),
             forbid=("sw_fused", "sw_wave"))
         tables = golden_tables(prefix, d)
+        debug = golden_debug(prefix, d, golden[0])
         cfgf = os.path.join(golds, "longread_cfg.json")
         prefix = os.path.join(d, "idx_lr")
         if cli(["db", "-i", os.path.join(golds, "longread_db.fa"), "-o",
@@ -749,7 +769,46 @@ def golden_phases():
             forbid=("sort_vote_rank_rows", "merge_vote_rank_rows"),
             reads="longread_reads.fa")
     return dict(golden=golden, golden_b50=b50, golden_longread=longread,
-                **tables)
+                **tables, **debug)
+
+
+def golden_debug(prefix: str, d: str, plain: dict) -> dict:
+    """The config-1 golden through the port's `aln` (cli.main) on CUDA in a
+    process of its own (TABLES_CHILD), three more times: with
+    --check (its checked pass launches the plain golden's kernels once
+    more), with GHOSTM_TPU_SYNC_PIPELINE=1 (4 batches of 32 reads), and
+    with --profile and GHOSTM_TPU_HBM_LOG (a non-empty trace; the log's
+    four keys, peak_bytes_in_use > 0). Each byte-identical."""
+    from ghostm_tpu_torch.pipeline import HBM_KEYS
+
+    need = ("sort_vote_rank_rows", "sw_fused", "lex_rank_rows")
+    runs = {}
+    tag = "golden_debug_check"
+    runs[tag] = golden_phase(prefix, tag, ["--batch", "128", "--check"],
+                             "config1_hits.tsv", need, env={})
+    for k in need:
+        if runs[tag][0][k] != 2 * plain[k]:
+            raise SystemExit(f"{tag}: {k} launched {runs[tag][0][k]} "
+                             f"times, not twice the golden's {plain[k]}")
+    tag = "golden_debug_sync"
+    runs[tag] = golden_phase(prefix, tag, ["--batch", "32"],
+                             "config1_hits.tsv", need,
+                             env={"GHOSTM_TPU_SYNC_PIPELINE": "1"})
+    tag = "golden_debug_profile"
+    prof, hbm = os.path.join(d, "prof"), os.path.join(d, "hbm.json")
+    runs[tag] = golden_phase(prefix, tag, ["--batch", "128", "--profile",
+                                           prof], "config1_hits.tsv", need,
+                             env={"GHOSTM_TPU_HBM_LOG": hbm})
+    trace = os.path.join(prof, "trace.json")
+    size = os.path.getsize(trace) if os.path.exists(trace) else 0
+    with open(hbm) as f:
+        mem = json.load(f)
+    emit(phase="golden_debug_profile_files", trace_bytes=size, hbm_log=mem)
+    if not size:
+        raise SystemExit(f"{tag}: no profiler trace")
+    if sorted(mem) != sorted(HBM_KEYS) or not mem["peak_bytes_in_use"] > 0:
+        raise SystemExit(f"{tag}: device-memory log {mem}")
+    return runs
 
 
 def build_config2_index(n_subjects: int, cfg, n_long: int = 0):
@@ -758,7 +817,8 @@ def build_config2_index(n_subjects: int, cfg, n_long: int = 0):
     long-read leg): n_long proteins of 1750-1850 aa (default_rng(8)) follow
     the short ones, and the truncation is `db`'s global hash sampling
     (seeds.bucket_keep): at k = 4 every bucket is full, and
-    keeping the first positions would leave the long proteins no seed."""
+    keeping the first positions would leave the long proteins no seed.
+    Returns (index, seconds of bucket_keep and of build_seed_index)."""
     from ghostm_tpu_torch.index import diskio, seeds
     from ghostm_tpu_torch.index.store import SubjectStore
     from ghostm_tpu_torch.utils.simulate import fast_proteins, store_arrays
@@ -773,15 +833,22 @@ def build_config2_index(n_subjects: int, cfg, n_long: int = 0):
     st = SubjectStore(buffer=buf, starts=starts, lengths=lens.astype(np.int32),
                       subject_ids=np.arange(n_subjects, dtype=np.int32),
                       names=[f"s{i}" for i in range(n_subjects)])
+    secs = {}
     if n_long:
+        t0 = time.time()
         keep = seeds.bucket_keep(codes, lens, cfg.seed_len,
                                  cfg.hits_per_seed)
+        secs["bucket_keep_s"] = time.time() - t0
         keep_buf = seeds.buffer_keep(keep, lens, cfg.seed_len,
                                      np.arange(n_subjects), starts, len(buf))
+        t0 = time.time()
         sidx = seeds.build_seed_index(buf, cfg.seed_len, keep_buf)
+        secs["seed_index_s"] = time.time() - t0
         return diskio.stack_shards([diskio.IndexShard(st, sidx)],
-                                   cfg.seed_len)
+                                   cfg.seed_len), secs
+    t0 = time.time()
     sidx = seeds.build_seed_index(buf, cfg.seed_len)
+    secs["seed_index_s"] = time.time() - t0
     bs = np.asarray(sidx.bucket_starts, np.int64)
     counts = np.diff(bs)
     keep = (np.arange(len(sidx.positions), dtype=np.int64)
@@ -791,7 +858,8 @@ def build_config2_index(n_subjects: int, cfg, n_long: int = 0):
     sidx = seeds.SeedIndex(cfg.seed_len,
                            sidx.positions[keep].astype(np.int32),
                            nbs.astype(np.int32))
-    return diskio.stack_shards([diskio.IndexShard(st, sidx)], cfg.seed_len)
+    return diskio.stack_shards([diskio.IndexShard(st, sidx)],
+                               cfg.seed_len), secs
 
 
 def make_batches(index, n_batches: int, R: int, read_len: int = 100,
@@ -951,15 +1019,26 @@ def crosscheck(eng, index, batch, n: int = 256):
     return same, int(((cpu[1] >> 15) > 0).sum())
 
 
+def native_calls() -> dict:
+    """ghostm_tpu_torch.native.CALLS as JSON: "function/route" -> calls;
+    a call that took the Python route fails the run."""
+    from ghostm_tpu_torch import native
+
+    calls = {f"{f}/{r}": n for (f, r), n in sorted(native.CALLS.items())}
+    python = {k: n for k, n in calls.items() if k.endswith("/python")}
+    if python:
+        raise SystemExit(f"host code took the Python route: {python}")
+    return calls
+
+
 def scale_phase(n_subjects: int, n_timed: int):
     from ghostm_tpu_torch.config import Config
     from ghostm_tpu_torch.engine import SearchEngine
-    from ghostm_tpu_torch.pipeline import run_search
 
     R = 8192
     cfg = Config(query_batch=R, seed_len=5, hits_per_seed=128)
     t0 = time.time()
-    index = build_config2_index(n_subjects, cfg)
+    index, secs = build_config2_index(n_subjects, cfg)
     t_index = time.time() - t0
     t0 = time.time()
     eng = SearchEngine(cfg, index, device="cuda")
@@ -967,7 +1046,8 @@ def scale_phase(n_subjects: int, n_timed: int):
     t_engine = time.time() - t0
     batches = make_batches(index, 1 + n_timed, R)
     emit(phase="scale_setup", subjects=n_subjects,
-         residues=int(index.total_residues), index_s=t_index,
+         residues=int(index.total_residues), index_s=t_index, **secs,
+         native_calls=native_calls(),
          engine_init_s=t_engine, table_bytes=table_bytes(eng),
          table_width=eng.table_width, expand=int(index.expand_width))
 
@@ -987,20 +1067,72 @@ def scale_phase(n_subjects: int, n_timed: int):
     if not (last[1] >> 15).max() > 0:
         raise SystemExit("scale: no hits in the last batch")
     emit(phase="scale_stages", **stage_breakdown(eng, *batches[1][1:]))
-
-    # end to end through the pipeline (fetch, unpack, m8 write)
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.time()
-        rows = run_search(eng, batches[1:], os.path.join(d, "hits.tsv"))
-        wall_p = time.time() - t0
-    emit(phase="scale_pipeline", reads=R * n_timed, wall_s=wall_p,
-         reads_per_s=R * n_timed / wall_p, rows=rows)
+    pipeline_phase(eng, index, batches, n_timed)
 
     same, hits = crosscheck(eng, index, batches[1])
     emit(phase="scale_crosscheck", reads=256, equal=same, hits=hits)
     if not same:
         raise SystemExit("scale: CUDA and CPU engines disagree")
     return (launches, shapes), index, eng.key_table, batches
+
+
+def pipeline_phase(eng, index, batches, n_timed: int) -> None:
+    """`scale_pipeline`: the timed batches through run_search writing m8,
+    its wall split into the one-time set-up and each batch's host work
+    (every batch through the native writer); `scale_m8_routes`: one
+    batch's rows formatted by the native and the Python route, the same
+    bytes."""
+    import io
+
+    from ghostm_tpu_torch import native
+    from ghostm_tpu_torch.pipeline import _subject_names, run_search
+    from ghostm_tpu_torch.report import write_hits
+    from ghostm_tpu_torch.utils.metrics import MetricsLog
+
+    R = eng.cfg.query_batch
+    native.reset_calls()
+    m = MetricsLog()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.time()
+        rows = run_search(eng, batches[1:], os.path.join(d, "hits.tsv"),
+                          metrics=m)
+        wall_p = time.time() - t0
+    ms = lambda f: spread([getattr(b, f) * 1e3 for b in m.batches])
+    emit(phase="scale_pipeline", reads=R * n_timed, wall_s=wall_p,
+         reads_per_s=R * n_timed / wall_p,
+         reads_per_s_after_setup=R * n_timed / (wall_p - m.setup_s),
+         rows=rows, setup_ms=m.setup_s * 1e3,
+         batch_ms=dict(fetch_unpack=ms("fetch_s"), columns=ms("columns_s"),
+                       format=ms("format_s"), write=ms("write_s"),
+                       launch_to_written=ms("wall_s")),
+         batch_rows=[b.hits for b in m.batches],
+         native_calls=native_calls())
+    if native.CALLS[("m8_format", "native")] != n_timed:
+        raise SystemExit(f"scale_pipeline: {n_timed} batches, "
+                         f"{native.CALLS[('m8_format', 'native')]} through "
+                         "the native writer")
+    names, dna, lens = batches[1]
+    hits, stats = eng.unpack_results(eng.fetch(
+        eng.search_refine_async_dna(dna, lens)))
+    snames = _subject_names(index)
+    snames.arena()
+    db_seqs = sum(sh.store.num_subjects for sh in index.shards)
+    out = {}
+    for route, sn in (("native", snames), ("python", snames.names)):
+        ts = []
+        for _ in range(3):
+            timing, buf = {}, io.StringIO()
+            n = write_hits(buf, eng.cfg, names, lens, sn, hits, stats,
+                           index.total_residues, db_seqs, timing=timing)
+            ts.append(timing["format_s"] * 1e3)
+        out[route] = (spread(ts), buf.getvalue())
+    equal = out["native"][1] == out["python"][1]
+    emit(phase="scale_m8_routes", rows=n, native_format_ms=out["native"][0],
+         python_format_ms=out["python"][0], bytes_equal=equal,
+         native_calls=native_calls())
+    if not equal:
+        raise SystemExit("scale_m8_routes: the native and Python m8 rows "
+                         "differ")
 
 
 def score_fed_leg(tag: str, cfg, index, batches, kernel: str,
@@ -1052,7 +1184,7 @@ def longread_phase(n_short: int):
 
     cfg = Config(**LONGREAD)
     t0 = time.time()
-    index = build_config2_index(n_short, cfg, n_long=N_LONG)
+    index, secs = build_config2_index(n_short, cfg, n_long=N_LONG)
     t_index = time.time() - t0
     t0 = time.time()
     eng = SearchEngine(cfg, index, device="cuda")
@@ -1063,7 +1195,8 @@ def longread_phase(n_short: int):
                            source=range(n_short, n_short + N_LONG))
     emit(phase="longread_setup", subjects=n_short + N_LONG,
          long_subjects=N_LONG, residues=int(index.total_residues),
-         index_s=t_index, engine_init_s=t_engine, route=eng.route,
+         index_s=t_index, **secs, native_calls=native_calls(),
+         engine_init_s=t_engine, route=eng.route,
          table_bytes=table_bytes(eng), table_width=eng.table_width,
          nbins=eng.nbins, expand=int(index.expand_width),
          pack_ok=eng._pack_ok)
@@ -1110,8 +1243,9 @@ def build_tail_index(n_subjects: int, prefix: str) -> dict:
     of 5,000-35,213 aa (default_rng(9); the longest exactly TAIL_MAX), k =
     5, hits_per_seed 128 truncated globally (seeds.bucket_keep), the
     subjects assigned by store.shard_records; saved with save_index.
-    Returns the seconds of each step. Runs in a child process (main's
-    --build-tail-index) while the GPU legs run."""
+    Returns the seconds of each step (seed_index_s: build_seed_index's,
+    within shards_s) and the host-code calls by route. Runs in a child
+    process (main's --build-tail-index) while the GPU legs run."""
     from ghostm_tpu_torch.config import Config
     from ghostm_tpu_torch.index import diskio, seeds, store
     from ghostm_tpu_torch.utils.simulate import fast_proteins, store_arrays
@@ -1139,6 +1273,7 @@ def build_tail_index(n_subjects: int, prefix: str) -> dict:
         [(None, view[a:a + n]) for a, n in zip(first.tolist(),
                                                lens.tolist())], cfg.shards)
     shards = []
+    secs["seed_index_s"] = 0.0
     for ids in assign:
         ids = np.asarray(ids, np.int64)
         sl = lens[ids]
@@ -1150,12 +1285,15 @@ def build_tail_index(n_subjects: int, prefix: str) -> dict:
         st = store.SubjectStore(buf, starts, sl.astype(np.int32),
                                 ids.astype(np.int32), [f"s{i}" for i in ids])
         keep_buf = seeds.buffer_keep(keep, lens, k, ids, starts, len(buf))
-        shards.append(diskio.IndexShard(
-            st, seeds.build_seed_index(buf, k, keep_buf)))
+        t1 = time.time()
+        sidx = seeds.build_seed_index(buf, k, keep_buf)
+        secs["seed_index_s"] += time.time() - t1
+        shards.append(diskio.IndexShard(st, sidx))
     secs["shards_s"] = time.time() - t0
     t0 = time.time()
     diskio.save_index(prefix, shards, k)
     secs["save_s"] = time.time() - t0
+    secs["native_calls"] = native_calls()
     return secs
 
 
@@ -1415,7 +1553,8 @@ def smoke(args, _build, tail: list, tail_dir: str) -> int:
         if e["launches"] == 0:
             raise SystemExit(f"{e['name']}: no launch on its path {path}")
         out.append({k: e[k] for k in keys + ("launches_merge",) if k in e})
-    emit(phase="done", seconds=time.time() - t_all)
+    emit(phase="done", seconds=time.time() - t_all,
+         native_calls=native_calls())
     print(card)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {

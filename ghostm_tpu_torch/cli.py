@@ -8,9 +8,14 @@ versions), so the JAX package's command lines carry over. Every
 `--matrix`, gap cost and `--band` of the JAX package runs (a CUDA run takes
 bands up to 128 and gap costs >= 0). Long-read mode runs as in the JAX
 package: `smooth_bins` and `chain_gamma` from `--config` JSON or
-`--chain-gamma`, long reads with `--max-read-len`. The mesh and
-multi-process flags, `--check`, `--debug-nans`, `--profile` and `--cpu` are
-not ported yet and are rejected.
+`--chain-gamma`, long reads with `--max-read-len`. The debug surface runs
+as in the JAX package: `--check` (bounds and NaN asserts on each batch's
+search before its step), `--debug-nans` (a NaN check of every stage's
+floating outputs; the step computes in integers), `--profile DIR`
+(torch.profiler's trace), and the variables GHOSTM_TPU_HBM_LOG and
+GHOSTM_TPU_SYNC_PIPELINE (pipeline.py). The mesh and multi-process flags
+(`--data-axis` / `--db-axis` above 1, `--coordinator`, `--num-processes`,
+`--process-id`) and `--cpu` are not ported yet and are rejected.
 """
 
 from __future__ import annotations
@@ -30,8 +35,7 @@ log = logging.getLogger("ghostm_tpu_torch")
 
 # flags of the JAX package's CLI this port does not support yet
 _NOT_PORTED = (
-    ("debug_nans", "--debug-nans"), ("cpu", "--cpu"), ("check", "--check"),
-    ("profile", "--profile"), ("coordinator", "--coordinator"),
+    ("cpu", "--cpu"), ("coordinator", "--coordinator"),
     ("num_processes", "--num-processes"), ("process_id", "--process-id"),
 )
 
@@ -42,7 +46,8 @@ def _add_common(p):
     p.add_argument("--log-json", action="store_true")
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("--debug-nans", action="store_true",
-                   help="not ported yet (rejected)")
+                   help="check every stage's floating outputs for NaN (the "
+                        "search step computes in integers)")
     p.add_argument("--cpu", type=int, nargs="?", const=8, default=None,
                    metavar="N", help="JAX mesh testing: not ported (rejected)")
 
@@ -117,6 +122,8 @@ def cmd_aln(args) -> int:
         gap_extend=args.gap_extend,
         checkpoint_batches=args.checkpoint_batches,
         chain_gamma=args.chain_gamma,
+        check=args.check or None,
+        profile_dir=args.profile,
     )
     index = load_index(args.db)
     if cfg.seed_len != index.seed_len:
@@ -175,10 +182,12 @@ def main(argv=None) -> int:
                          "their plain PyTorch versions")
     pa.add_argument("--pallas", action=argparse.BooleanOptionalAction,
                     default=None, help="accepted and ignored")
-    pa.add_argument("--profile", type=str, default=None,
-                    help="not ported yet (rejected)")
+    pa.add_argument("--profile", type=str, default=None, metavar="DIR",
+                    help="torch.profiler trace of the batch loop, written "
+                         "to DIR/trace.json")
     pa.add_argument("--check", action="store_true",
-                    help="not ported yet (rejected)")
+                    help="debug: bounds and NaN asserts on each batch's "
+                         "search before its step (raise on a violation)")
     pa.add_argument("--resume", action="store_true",
                     help="resume from per-batch checkpoint parts")
     pa.add_argument("--checkpoint-batches", type=int, default=None,
@@ -202,6 +211,10 @@ def main(argv=None) -> int:
         if (getattr(args, attr, None) or 1) > 1:
             ap.error(f"{flag} > 1 (the device mesh) is not ported yet")
     setup_logging(json_lines=args.log_json, verbose=args.verbose)
+    if args.debug_nans:
+        from ghostm_tpu_torch import engine
+
+        engine.DEBUG_NANS = True
     return args.fn(args)
 
 

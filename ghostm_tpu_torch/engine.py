@@ -38,10 +38,12 @@ A CUDA engine refuses bands above 128, the widest its SW kernels take,
 and negative gap costs (NotImplementedError at init).
 
 Pitfalls of the translation from JAX, handled below:
-  * gathers: JAX clamps an out-of-range gather index silently; torch
-    raises on the CPU and faults on CUDA. Every gather index is clamped
-    as JAX would clamp it (table rows, seed positions, subject rows,
-    frames).
+  * gathers: JAX clamps an out-of-range gather index silently (and jnp
+    indexing first wraps an index in [-n, -1] to idx + n); torch raises on
+    the CPU and faults on CUDA. Every gather index is clamped as JAX would
+    clamp it (table rows, seed positions, subject rows, frames), and the
+    one index a corrupt table can make negative, the aligned table's row,
+    is wrapped first (`_jax_index`).
   * int32: JAX without x64 computes in int32 and torch.arange defaults to
     int64. The packed vote keys, the packed top-k and the transport words
     rely on int32 arithmetic, so every such tensor is made int32 (torch's
@@ -51,6 +53,16 @@ Pitfalls of the translation from JAX, handled below:
     division.
   * searchsorted: torch's needs a contiguous sorted sequence of the
     values' dtype; its default side (left) is JAX's.
+
+Debug checks (CLI --check, --debug-nans): `search_batch_checked` runs
+propose, select, align and rank with `check=True`, which asserts before
+each gather that the JAX package runs unclamped (where its checkify pass
+fails an out-of-bounds index: the seed tables' row, row/count and bucket
+gathers of propose) that the index is in bounds, and raises naming the
+site. Every stage's floating outputs are checked for NaN there, and in
+every step while the process-wide switch `DEBUG_NANS` is on (CLI
+--debug-nans); the step computes in integers, so no stage returns a float
+today.
 """
 
 from __future__ import annotations
@@ -69,9 +81,11 @@ from ghostm_tpu_torch.kernels import candidates as cand_mod
 from ghostm_tpu_torch.kernels import (
     seed_lookup, sort, sw_fused, sw_scored, sw_wave, sw_xla,
 )
-from ghostm_tpu_torch.ops.encode import SENTINEL
+from ghostm_tpu_torch.ops.encode import ALPHA, SENTINEL
 from ghostm_tpu_torch.ops.scoring import LOW, padded_matrix
-from ghostm_tpu_torch.ops.translate import six_frame_translate_torch
+from ghostm_tpu_torch.ops.translate import (
+    six_frame_translate, six_frame_translate_torch,
+)
 
 NFRAMES = 6
 BIG = 1 << 30
@@ -85,6 +99,46 @@ DIRECT_SENT = 0x7FF00000
 # n_shards ways. The JAX package's default and override (read at import:
 # a run that sets GHOSTM_TPU_DIRECT_TABLE_CAP starts a new process).
 DIRECT_TABLE_CAP = int(os.environ.get("GHOSTM_TPU_DIRECT_TABLE_CAP", 3 << 30))
+# Process-wide NaN check of every stage's floating outputs (CLI
+# --debug-nans, the JAX package's jax_debug_nans).
+DEBUG_NANS = False
+
+
+def _check_nans(stage: str, *tensors: torch.Tensor,
+                check: bool = False) -> None:
+    """Raise FloatingPointError naming `stage` if a floating tensor it
+    returned holds a NaN (with check=True or DEBUG_NANS on)."""
+    if not (check or DEBUG_NANS):
+        return
+    for t in tensors:
+        if t.is_floating_point() and bool(torch.isnan(t).any()):
+            raise FloatingPointError(f"NaN in the output of stage {stage}")
+
+
+def _check_index(idx: torch.Tensor, n: int, site: str) -> None:
+    """--check's bounds assert at a gather of `n` rows that the JAX
+    package runs unclamped: jnp wraps an index in [-n, -1], and checkify
+    fails any other outside [0, n). Raises IndexError naming the site."""
+    bad = (idx < -n) | (idx >= n)
+    if bool(bad.any()):
+        raise IndexError(f"--check: {site}: gather index "
+                         f"{int(idx[bad][0])} out of bounds for {n} rows")
+
+
+def check_codes(codes: np.ndarray, what: str) -> None:
+    """Refuse residue codes outside [0, ALPHA) (fault F5): the score
+    tables have ALPHA rows and columns, so the plain versions would index
+    past them and the CUDA kernels read past them, where the JAX package's
+    one-hot contractions score such a code 0."""
+    c = np.asarray(codes)
+    if c.size and (int(c.min()) < 0 or int(c.max()) >= ALPHA):
+        raise ValueError(f"{what} holds residue codes outside [0, {ALPHA})")
+
+
+def _jax_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """The row a JAX gather of `n` rows reads at int index `idx`: wrapped
+    from [-n, -1] as jnp indexing wraps it, then clamped into [0, n)."""
+    return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -363,6 +417,7 @@ def propose_shard(
     presorted_run: int = 0,
     smooth: bool = False,
     chain_gamma: int = 0,
+    check: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(Qf, ncand) proposals (gsid, lbin, votes) of one shard.
 
@@ -385,7 +440,11 @@ def propose_shard(
     power of two >= 8): each (qpos, bucket) run of a key row is ascending
     by construction; odd qpos runs are flipped to descending so the
     bitonic kernels skip their first log2(run) stages. The sorted row is
-    the same either way."""
+    the same either way.
+
+    check: assert that every index of the gathers the JAX package runs
+    unclamped (the direct table row, the aligned row/count word and rows,
+    the CSR bucket bounds) is in bounds (`_check_index`)."""
     Qf, Lq = qflat.shape
     dev = qflat.device
     qi = qflat.to(torch.int32)
@@ -407,17 +466,26 @@ def propose_shard(
     for qc in qi_p.split(qchunk):
         kmers = seed_lookup.query_kmer_keys(qc, seed_len)[:, :Lq_eff]
         if direct:
-            tg = tab_main[kmers.reshape(-1).clamp(0, nrows - 1).to(torch.int64)]
+            kflat = kmers.reshape(-1)
+            if check:
+                _check_index(kflat, nrows, "propose: direct table row")
+            tg = tab_main[kflat.clamp(0, nrows - 1).to(torch.int64)]
             tg = tg.reshape(qc.shape[0], Lq_eff, table_width)
             keys = torch.where(tg < DIRECT_SENT, (tg - qpos) // half,
                                torch.full_like(tg, BIG))
         elif mode == "aligned":
             cbits = int(table_width).bit_length()
+            if check:
+                _check_index(kmers, tab_aux.shape[0],
+                             "propose: aligned row/count word")
             aux = tab_aux[kmers.clamp(0, tab_aux.shape[0] - 1).to(torch.int64)]
             valid = offs < (aux & ((1 << cbits) - 1))[..., None]
             r = (aux >> cbits).reshape(-1)
-            rows = [tab_main[(r + i).clamp(0, nrows - 1).to(torch.int64)]
-                    for i in range(-(-expand // table_width))]
+            rows = []
+            for i in range(-(-expand // table_width)):
+                if check:
+                    _check_index(r + i, nrows, "propose: aligned table row")
+                rows.append(tab_main[_jax_index(r + i, nrows).to(torch.int64)])
             w2 = rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
             tg = w2[:, :expand].reshape(qc.shape[0], Lq, expand)
             keys = torch.where(valid, (tg - qpos) // half,
@@ -425,6 +493,9 @@ def propose_shard(
         else:
             km = kmers.to(torch.int64)
             nbs = bucket_starts.shape[0]
+            if check:
+                _check_index(km, nbs, "propose: CSR bucket start")
+                _check_index(km + 1, nbs, "propose: CSR bucket end")
             start = bucket_starts[km.clamp(0, nbs - 1)]
             count = bucket_starts[(km + 1).clamp(0, nbs - 1)] - start
             idx = (start[..., None] + offs).clamp(0, nrows - 1)
@@ -705,6 +776,7 @@ class SearchEngine:
         self.cfg = cfg
         self.index = index
         self.n_shards = index.buffers.shape[0]
+        check_codes(index.buffers, "the index buffer")
         self.lead = lead_pad(cfg)
         self.matrix_np = mat
         self.expand = index.expand_width
@@ -757,9 +829,10 @@ class SearchEngine:
             ))
 
     # ------------------------------------------------------------------
-    def propose(self, qflat: torch.Tensor):
+    def propose(self, qflat: torch.Tensor, check: bool = False):
         """(R*6, Lq) frames -> selected (gsid, lbin), each (R*6, ncand):
-        every shard's proposals side by side, then the global top-ncand."""
+        every shard's proposals side by side, then the global top-ncand.
+        check: propose_shard's bounds asserts and the NaN checks."""
         cfg = self.cfg
         C = cfg.candidates_per_frame
         props = [propose_shard(
@@ -769,9 +842,12 @@ class SearchEngine:
             nbins=self.nbins, table_width=self.table_width,
             mode=self.table_mode, presorted_run=self.presorted_run,
             smooth=cfg.smooth_bins, chain_gamma=cfg.chain_gamma,
+            check=check,
         ) for d in self.shard_dev]
         pg, pb, pv = (torch.cat(x, dim=1) for x in zip(*props))
+        _check_nans("propose", pg, pb, pv, check=check)
         sel_g, sel_b, _ = cand_mod.select_global(pg, pb, pv, C)
+        _check_nans("select", sel_g, sel_b, check=check)
         return sel_g, sel_b
 
     def align(self, qflat: torch.Tensor, sel_g: torch.Tensor,
@@ -789,14 +865,37 @@ class SearchEngine:
         ) for d in self.shard_dev]
         return tuple(torch.stack(x) for x in zip(*outs))
 
-    def search_packed(self, qcodes3: torch.Tensor) -> torch.Tensor:
+    def search_packed(self, qcodes3: torch.Tensor,
+                      check: bool = False) -> torch.Tensor:
         """propose -> select -> align -> rank on (R, 6, Lq) int8 frames;
-        returns the ranked (9, R, K) int32 hits on the device."""
+        returns the ranked (9, R, K) int32 hits on the device. check: the
+        bounds asserts and NaN checks of search_batch_checked."""
         R = qcodes3.shape[0]
         qflat = qcodes3.reshape(R * NFRAMES, self.cfg.query_frame_len)
-        sel_g, sel_b = self.propose(qflat)
+        sel_g, sel_b = self.propose(qflat, check=check)
         aligned = self.align(qflat, sel_g, sel_b)
-        return merge_rank(aligned, sel_g, R, self.cfg.max_hits)
+        _check_nans("align", *aligned, check=check)
+        packed = merge_rank(aligned, sel_g, R, self.cfg.max_hits)
+        _check_nans("rank", packed, check=check)
+        return packed
+
+    def translate(self, dna: np.ndarray, lens: np.ndarray) -> np.ndarray:
+        """Six-frame translation on the host: (R, 6, Lq) int8 codes."""
+        return six_frame_translate(dna, lens, self.cfg.query_frame_len)
+
+    def search_batch_checked(self, qcodes: np.ndarray) -> BatchHits:
+        """Debug mode (CLI --check): propose, select, align and rank on
+        (R, 6, Lq) int8 frames through the step's own route (the kernels
+        on CUDA, their plain versions on the CPU), asserting before each
+        gather the JAX package runs unclamped that its index is in bounds,
+        and checking every stage's floating outputs for NaN. Raises
+        IndexError / FloatingPointError naming the site where the JAX
+        package's checkify pass raises; the hits are the step's. Codes
+        outside [0, ALPHA) raise ValueError (check_codes)."""
+        check_codes(qcodes, "qcodes")
+        q3 = torch.from_numpy(np.ascontiguousarray(qcodes)).to(self.device)
+        out = self.fetch(self.search_packed(q3, check=True))
+        return BatchHits(*(out[i] for i in range(9)))
 
     def refine_packed(self, qcodes3: torch.Tensor,
                       packed: torch.Tensor) -> torch.Tensor:
@@ -833,8 +932,11 @@ class SearchEngine:
         when the transport cannot hold this config's value ranges, or
         when pack is False)."""
         qcodes3 = six_frame_translate_torch(dna, lens, self.cfg.query_frame_len)
+        _check_nans("translate", qcodes3)
         packed = self.search_packed(qcodes3)
-        out = torch.cat([packed, self.refine_packed(qcodes3, packed)])
+        stats = self.refine_packed(qcodes3, packed)
+        _check_nans("refine", stats)
+        out = torch.cat([packed, stats])
         return self._pack_transport(out) if pack and self._pack_ok else out
 
     def search_refine_async_dna(self, dna: np.ndarray,

@@ -26,6 +26,8 @@ import dataclasses
 
 import numpy as np
 
+from ghostm_tpu_torch import native
+
 NUM_SEED_AA = 20
 
 
@@ -171,7 +173,13 @@ def build_seed_index(buf: np.ndarray, k: int, keep: np.ndarray | None = None) ->
 
     `keep`: optional bool mask over buffer positions (len >= len(buf)-k+1)
     from bucket_keep, mapped into shard-buffer coordinates (buffer_keep).
+
+    Takes the native counting sort (ghostm_tpu_torch.native.kmer_csr) when
+    the host library is built; the numpy path below gives the same arrays.
     """
+    res = native.kmer_csr(buf, k, keep)
+    if res is not None:
+        return SeedIndex(k, *res)
     keys = kmer_keys(buf, k)
     valid = keys < NUM_SEED_AA**k
     if keep is not None:

@@ -11,41 +11,105 @@ rows stream straight into the output file.
 Batch i+1's device step is launched before batch i's result is fetched and
 written: the fetch + TSV format + write of a batch run on one background
 thread (a single worker keeps part files and cursor updates in order), so
-host work overlaps the next batch's device work. Not ported yet: the
-profiler trace and the device-memory log.
+host work overlaps the next batch's device work. The rows are formatted in
+C (report.SubjectNames, native.m8_format) where the host library is built.
+
+Debug and observability hooks, as in the JAX package:
+  * GHOSTM_TPU_SYNC_PIPELINE=1: batch i is flushed before batch i+1 is
+    launched (no background thread; one batch in flight; the same bytes);
+  * cfg.check (CLI --check): each batch is also translated on the host and
+    run through SearchEngine.search_batch_checked before its step;
+  * cfg.profile_dir (CLI --profile DIR): torch.profiler (CPU activity, and
+    CUDA on a CUDA engine) around the batch loop; the Chrome trace goes to
+    DIR/trace.json;
+  * GHOSTM_TPU_HBM_LOG=FILE: device memory sampled after each batch's
+    flush; at exit FILE holds the maxima as JSON (bytes_in_use,
+    peak_bytes_in_use, largest_alloc_size, bytes_limit). A CPU engine has
+    no allocator statistics: no file is written, and the run logs why.
+The mesh and multi-process runs are not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable
+from typing import Iterable, Optional
 
-from ghostm_tpu_torch.report import M8_HEADER, write_hits
+import torch
+
+from ghostm_tpu_torch import native
+from ghostm_tpu_torch.report import M8_HEADER, SubjectNames, write_hits
 from ghostm_tpu_torch.utils.metrics import BatchMetrics, MetricsLog
 
 log = logging.getLogger("ghostm_tpu_torch.pipeline")
 
 NFRAMES = 6
+HBM_KEYS = ("bytes_in_use", "peak_bytes_in_use", "largest_alloc_size",
+            "bytes_limit")
 
 
-def _subject_names(index) -> Dict[int, str]:
+def _subject_names(index) -> SubjectNames:
     names = {}
     for sh in index.shards:
         for row, gid in enumerate(sh.store.subject_ids):
             names[int(gid)] = sh.store.names[row]
-    return names
+    return SubjectNames(names)
+
+
+def device_memory(device: torch.device) -> dict:
+    """The CUDA allocator's figures under the JAX package's memory_stats
+    keys: bytes allocated now and at peak, the largest live allocation,
+    and the card's memory (bytes_limit)."""
+    st = torch.cuda.memory_stats(device)
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    largest = max((b["size"] for seg in torch.cuda.memory_snapshot()
+                   if seg["device"] == idx for b in seg["blocks"]
+                   if b["state"] == "active_allocated"), default=0)
+    return dict(bytes_in_use=st.get("allocated_bytes.all.current", 0),
+                peak_bytes_in_use=st.get("allocated_bytes.all.peak", 0),
+                largest_alloc_size=largest,
+                bytes_limit=torch.cuda.mem_get_info(device)[1])
+
+
+@contextlib.contextmanager
+def _profiled(engine, profile_dir: Optional[str]):
+    """torch.profiler around the body when profile_dir is set; its Chrome
+    trace is written to profile_dir/trace.json."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if engine.device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    log.info("profile trace -> %s", path)
 
 
 def run_search(engine, batches: Iterable, output: str,
-               resume: bool = False) -> int:
+               resume: bool = False,
+               metrics: Optional[MetricsLog] = None) -> int:
+    """Search every batch and write the m8 table to `output`; returns the
+    rows written. metrics: a MetricsLog to fill (the one-time set-up and
+    each batch's wall and host split), for a caller that reads them."""
     cfg = engine.cfg
+    metrics = metrics if metrics is not None else MetricsLog()
+    t_setup = time.perf_counter()
     snames = _subject_names(engine.index)
+    if native.available():
+        snames.arena()   # once, here, so that no batch carries it
+    metrics.setup_s = time.perf_counter() - t_setup
     db_seqs = sum(sh.store.num_subjects for sh in engine.index.shards)
-    metrics = MetricsLog()
     checkpointing = cfg.checkpoint_batches > 0
     parts_dir = output + ".parts"
     cursor_path = os.path.join(parts_dir, "cursor.json")
@@ -56,19 +120,28 @@ def run_search(engine, batches: Iterable, output: str,
             with open(cursor_path) as f:
                 done = json.load(f)["completed_batches"]
             log.info("resuming after %d completed batches", done)
+    # GHOSTM_TPU_HBM_LOG: the maxima of device_memory over the batches
+    hbm_log = os.environ.get("GHOSTM_TPU_HBM_LOG")
+    hbm_peak = {} if hbm_log and engine.device.type == "cuda" else None
+    if hbm_log and hbm_peak is None:
+        log.info("GHOSTM_TPU_HBM_LOG: a CPU engine has no device allocator "
+                 "statistics; no device-memory log is written")
+    sync = os.environ.get("GHOSTM_TPU_SYNC_PIPELINE") == "1"
     total_rows = 0
     out_f = None
 
     def _flush(p):
         nonlocal total_rows
         bi, names, lens, R, payload, t0 = p
+        t1 = time.perf_counter()
         hits, stats = engine.unpack_results(engine.fetch(payload))
+        split = dict(fetch_s=time.perf_counter() - t1)
         if checkpointing:
             part = os.path.join(parts_dir, f"part-{bi:06d}.tsv")
             with open(part + ".tmp", "w") as f:
                 rows = write_hits(
                     f, cfg, names, lens, snames, hits, stats,
-                    engine.index.total_residues, db_seqs,
+                    engine.index.total_residues, db_seqs, timing=split,
                 )
             os.replace(part + ".tmp", part)
             with open(cursor_path, "w") as f:
@@ -76,12 +149,16 @@ def run_search(engine, batches: Iterable, output: str,
         else:
             rows = write_hits(
                 out_f, cfg, names, lens, snames, hits, stats,
-                engine.index.total_residues, db_seqs,
+                engine.index.total_residues, db_seqs, timing=split,
             )
+        if hbm_peak is not None:
+            for k, v in device_memory(engine.device).items():
+                hbm_peak[k] = max(hbm_peak.get(k, 0), int(v))
         wall = time.time() - t0
         cells = R * NFRAMES * cfg.candidates_per_frame \
             * cfg.query_frame_len * cfg.band_width
-        m = BatchMetrics(len(names), wall, cells * engine.n_shards, rows)
+        m = BatchMetrics(len(names), wall, cells * engine.n_shards, rows,
+                         **split)
         metrics.add(m)
         log.info(
             "batch %d: %d reads, %d rows, %.2fs (%.0f reads/s, %.2f GCUPS)",
@@ -91,28 +168,36 @@ def run_search(engine, batches: Iterable, output: str,
         total_rows += rows
 
     pending = None  # (bi, names, lens, R, device payload, t0)
-    flusher = ThreadPoolExecutor(1)
+    flusher = None if sync else ThreadPoolExecutor(1)
     fut = None
     try:
-        if not checkpointing:
-            out_f = open(output, "w")
-            out_f.write(M8_HEADER + "\n")
-        for bi, (names, dna, lens) in enumerate(batches):
-            if checkpointing and bi < done:
-                continue
-            t0 = time.time()
-            payload = engine.search_refine_async_dna(dna, lens)
+        with _profiled(engine, cfg.profile_dir):
+            if not checkpointing:
+                out_f = open(output, "w")
+                out_f.write(M8_HEADER + "\n")
+            for bi, (names, dna, lens) in enumerate(batches):
+                if checkpointing and bi < done:
+                    continue
+                t0 = time.time()
+                if cfg.check:
+                    # bounds and NaN asserts (raise on a violation), then
+                    # the step
+                    engine.search_batch_checked(engine.translate(dna, lens))
+                payload = engine.search_refine_async_dna(dna, lens)
+                if pending is not None:
+                    if fut is not None:
+                        fut.result()   # propagate errors, bound the queue
+                    fut = flusher.submit(_flush, pending)
+                pending = (bi, names, lens, dna.shape[0], payload, t0)
+                if sync:
+                    _flush(pending)
+                    pending = None
+            if fut is not None:
+                fut.result()
+                fut = None
             if pending is not None:
-                if fut is not None:
-                    fut.result()   # propagate errors, bound the queue
-                fut = flusher.submit(_flush, pending)
-            pending = (bi, names, lens, dna.shape[0], payload, t0)
-        if fut is not None:
-            fut.result()
-            fut = None
-        if pending is not None:
-            _flush(pending)
-            pending = None
+                _flush(pending)
+                pending = None
         if checkpointing:
             with open(output, "w") as f:
                 f.write(M8_HEADER + "\n")
@@ -125,8 +210,12 @@ def run_search(engine, batches: Iterable, output: str,
             if fut is not None:
                 fut.result()
         finally:
-            flusher.shutdown(wait=True)
+            if flusher is not None:
+                flusher.shutdown(wait=True)
             if out_f is not None:
                 out_f.close()
+            if hbm_peak:
+                with open(hbm_log, "w") as f:
+                    json.dump(hbm_peak, f)
     log.info("search done: %s", metrics.dumps())
     return total_rows

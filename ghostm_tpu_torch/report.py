@@ -14,10 +14,12 @@ float64 on the host and REPORTED, never sorted on (SURVEY.md §7.2).
 
 from __future__ import annotations
 
-from typing import Dict, List, TextIO
+import time
+from typing import Dict, List, Optional, TextIO
 
 import numpy as np
 
+from ghostm_tpu_torch import native
 from ghostm_tpu_torch.config import Config
 from ghostm_tpu_torch.ops import evalue as ev
 
@@ -131,6 +133,39 @@ def frame_to_dna_coords(
     return dstart, dend
 
 
+class SubjectNames:
+    """gsid -> name map with a packed utf-8 arena for the native m8
+    formatter (built once a run, not once a batch)."""
+
+    def __init__(self, names: Dict[int, str]):
+        self.names = names
+        self._arena = None
+
+    def __getitem__(self, gid: int) -> str:
+        return self.names[gid]
+
+    def arena(self):
+        """(arena bytes, offsets int64[max_gid + 2]): gid g's name spans
+        arena[off[g]:off[g + 1]]; unmapped gids get empty names."""
+        if self._arena is None:
+            hi = max(self.names, default=-1) + 1
+            enc = [b""] * hi
+            for g, nm in self.names.items():
+                enc[g] = nm.encode()
+            off = np.zeros(hi + 1, np.int64)
+            np.cumsum([len(e) for e in enc], out=off[1:])
+            self._arena = (b"".join(enc), off)
+        return self._arena
+
+
+def _name_arena(names: List[str]):
+    enc = [nm.encode() for nm in names]
+    off = np.zeros(len(enc) + 1, np.int64)
+    if enc:
+        np.cumsum([len(e) for e in enc], out=off[1:])
+    return b"".join(enc), off
+
+
 def write_hits(
     out: TextIO,
     cfg: Config,
@@ -141,13 +176,21 @@ def write_hits(
     stats: Dict[str, np.ndarray],
     db_residues: int,
     db_seqs: int = 0,
+    timing: Optional[Dict[str, float]] = None,
 ) -> int:
     """Append m8 rows for one batch; returns number of rows written.
 
     Stats coords arrive window-local (j = i + b); the engine's s_end is
     subject-local, so subject-local sstart follows from the window span:
     s_start_sub = s_end_sub - (send_window - sstart_window).
+
+    subject_names: a SubjectNames formats the rows in C (native.m8_format,
+    when the host library is built); a plain dict, or no library, takes
+    the Python loop. Both write the same bytes. timing: when given, the
+    seconds of the vectorised columns, the formatting and the write are
+    added to its "columns_s", "format_s" and "write_s".
     """
+    t0 = time.perf_counter()
     R, K = hits.score.shape
     nR = min(R, len(read_names))
     lam, kk, kh = cfg.ka_params()
@@ -167,6 +210,7 @@ def write_hits(
     keep = (sc > 0) & (e <= cfg.evalue_cutoff)
     r_idx, k_idx = np.nonzero(keep)
     if r_idx.size == 0:
+        _add(timing, "columns_s", t0)
         return 0
     span = stats["send"][:nR] - stats["sstart"][:nR]
     s_end_sub = hits.s_end[:nR].astype(np.int64) + 1    # 1-based inclusive
@@ -186,14 +230,39 @@ def write_hits(
     mismatch = stats["mismatch"][:nR]
     gapopen = stats["gapopen"][:nR]
     gsid = hits.gsid[:nR]
-    lines = []
-    for r, k in zip(r_idx.tolist(), k_idx.tolist()):
-        lines.append(
+    t1 = _add(timing, "columns_s", t0)
+    text = None
+    if isinstance(subject_names, SubjectNames):
+        sarena, soff = subject_names.arena()
+        qarena, qoff = _name_arena(read_names)
+        pick = lambda a: np.asarray(a)[r_idx, k_idx]
+        text = native.m8_format(
+            r_idx, qarena, qoff, pick(gsid), sarena, soff,
+            pick(pident), pick(length), pick(mismatch), pick(gapopen),
+            pick(qs_dna), pick(qe_dna), pick(s_start_sub),
+            pick(s_end_sub), pick(e), pick(bits),
+        )
+    if text is not None:
+        text = text.decode()
+    else:
+        text = "".join([
             f"{read_names[r]}\t{subject_names[int(gsid[r, k])]}\t"
             f"{pident[r, k]:.2f}\t{length[r, k]}\t{mismatch[r, k]}\t"
             f"{gapopen[r, k]}\t{qs_dna[r, k]}\t{qe_dna[r, k]}\t"
             f"{s_start_sub[r, k]}\t{s_end_sub[r, k]}\t{e[r, k]:.2e}\t"
             f"{bits[r, k]:.1f}\n"
-        )
-    out.write("".join(lines))
-    return len(lines)
+            for r, k in zip(r_idx.tolist(), k_idx.tolist())
+        ])
+    t2 = _add(timing, "format_s", t1)
+    out.write(text)
+    _add(timing, "write_s", t2)
+    return len(r_idx)
+
+
+def _add(timing: Optional[Dict[str, float]], key: str, since: float) -> float:
+    """Add the seconds since `since` to timing[key] (when timing is given);
+    returns now."""
+    now = time.perf_counter()
+    if timing is not None:
+        timing[key] = timing.get(key, 0.0) + now - since
+    return now

@@ -15,6 +15,12 @@ class BatchMetrics:
     sw_cells: int
     hits: int
     candidates: int = 0
+    # the flush's host work (run_search): the fetch + unpack of the step's
+    # payload, then write_hits's vectorised columns, formatting and write
+    fetch_s: float = 0.0
+    columns_s: float = 0.0
+    format_s: float = 0.0
+    write_s: float = 0.0
 
     @property
     def reads_per_s(self) -> float:
@@ -28,6 +34,7 @@ class BatchMetrics:
 class MetricsLog:
     def __init__(self):
         self.batches: List[BatchMetrics] = []
+        self.setup_s = 0.0   # run_search's one-time set-up (the name map)
 
     def add(self, m: BatchMetrics) -> None:
         self.batches.append(m)

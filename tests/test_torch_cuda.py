@@ -6,6 +6,7 @@ nvcc and skips without one. Run on the card with
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
 
+import json
 import os
 
 import numpy as np
@@ -585,3 +586,82 @@ def test_engine_cuda_equals_cpu_tables_and_shards(dev, tmp_path, monkeypatch,
                       pack=False)
     assert int(want[0].max()) > 0
     assert torch.equal(got, want)
+
+
+def _golden_engines(tmp_path, monkeypatch=None, aligned=False):
+    """The config-1 golden index, one 128-read batch, a CUDA engine and a
+    CPU engine on the same key tables (aligned ones with a 1 KB direct
+    table cap)."""
+    from ghostm_tpu_torch import engine as E
+    from ghostm_tpu_torch.cli import main as cli
+    from ghostm_tpu_torch.config import Config
+    from ghostm_tpu_torch.index.diskio import load_index
+    from ghostm_tpu_torch.io.fasta import read_batches
+
+    if aligned:
+        monkeypatch.setattr(E, "DIRECT_TABLE_CAP", 1024)
+    gold = os.path.join(os.path.dirname(__file__), "golden")
+    prefix = str(tmp_path / "idx")
+    assert cli(["db", "-i", os.path.join(gold, "config1_db.fa"),
+                "-o", prefix]) == 0
+    idx = load_index(prefix)
+    cfg = Config(query_batch=128)
+    _, dna, lens = next(read_batches(os.path.join(gold, "config1_reads.fa"),
+                                     128, 120))
+    g = E.SearchEngine(cfg, idx, device="cuda")
+    c = E.SearchEngine(cfg, idx, device="cpu", key_table=g.key_table)
+    return g, c, dna, lens
+
+
+@pytest.mark.parametrize("aligned", [False, True])
+def test_search_batch_checked_cuda(dev, tmp_path, monkeypatch, aligned):
+    """--check's pass on CUDA, through the kernels (B2, B3, B4 launch): the
+    hits equal the CPU engine's checked pass and the CUDA step's; an
+    aligned row/count word corrupted past the table raises naming the
+    site, as on the CPU."""
+    g, c, dna, lens = _golden_engines(tmp_path, monkeypatch, aligned)
+    assert g.table_mode == ("aligned" if aligned else "direct")
+    q = g.translate(dna, lens)
+    before = dict(_build.LAUNCHES)
+    got = g.search_batch_checked(q)
+    for k in ("sort_vote_rank_rows", "sw_fused", "lex_rank_rows"):
+        assert _build.LAUNCHES[k] > before[k], k
+    want = c.search_batch_checked(q)
+    for f in ("score", "gsid", "frame", "qend", "s_end", "bend", "g0",
+              "srow", "shard"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    step = g.fetch(g.search_packed(torch.from_numpy(q).to(dev)))
+    np.testing.assert_array_equal(step[0], got.score)
+    assert got.score.max() > 0
+    if aligned:
+        d = g.shard_dev[0]
+        cbits = int(g.table_width).bit_length()
+        n = d["tab_main"].shape[0]
+        d["tab_aux"] = ((n + 7) << cbits) | (d["tab_aux"] & ((1 << cbits)
+                                                           - 1))
+        with pytest.raises(IndexError, match="aligned table row"):
+            g.search_batch_checked(q)
+
+
+def test_hbm_log_keys_cuda(dev, tmp_path, monkeypatch):
+    """GHOSTM_TPU_HBM_LOG on a CUDA engine: the JAX package's four keys,
+    peak bytes > 0 and within the card's memory; the table is the
+    golden's."""
+    from ghostm_tpu_torch import pipeline
+    from ghostm_tpu_torch.io.fasta import read_batches
+
+    g, _, _, _ = _golden_engines(tmp_path)
+    log_path = tmp_path / "hbm.json"
+    monkeypatch.setenv("GHOSTM_TPU_HBM_LOG", str(log_path))
+    gold = os.path.join(os.path.dirname(__file__), "golden")
+    out = str(tmp_path / "hits.tsv")
+    pipeline.run_search(g, read_batches(os.path.join(
+        gold, "config1_reads.fa"), 32, 120), out)
+    with open(out) as f, open(os.path.join(gold, "config1_hits.tsv")) as h:
+        assert f.read() == h.read()
+    with open(log_path) as f:
+        got = json.load(f)
+    assert tuple(sorted(got)) == tuple(sorted(pipeline.HBM_KEYS))
+    assert 0 < got["bytes_in_use"] <= got["peak_bytes_in_use"] \
+        <= got["bytes_limit"]
+    assert 0 < got["largest_alloc_size"] <= got["peak_bytes_in_use"]

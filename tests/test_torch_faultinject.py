@@ -1,0 +1,253 @@
+"""Fault injection and the --check debug mode of the port, against the JAX
+package (the port of tests/test_faultinject.py).
+
+Fault injection: `python -m ghostm_tpu_torch aln --device cpu` with
+per-batch checkpointing over a 2-shard index (the per-shard loop:
+GHOSTM_TPU_MERGE_COLOCATED=0; the JAX test's `--cpu 2 --db-axis 2` mesh is
+not ported yet) runs as a subprocess, is SIGKILLed mid-run (after at least
+one part file lands, before the last), restarts with --resume, and must
+write the bytes of an uninterrupted port run and of the JAX package's run
+on the same data.
+
+--check: clean data passes and writes the table of a run without it (the
+config-1 golden). Corrupted seed tables go to the JAX package's
+search_batch_checked (checkify) and to the port's on the same frames: both
+raise, or both pass with equal hits; residue codes outside the 32-letter
+code space are refused by the port (fault F5). Tolerance 0."""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import checkify
+
+from ghostm_tpu import engine as jengine
+from ghostm_tpu.cli import main as jcli
+from ghostm_tpu.config import Config as JConfig
+from ghostm_tpu.index import diskio as jdiskio
+from ghostm_tpu.io.fasta import read_batches
+from ghostm_tpu_torch import engine as tengine
+from ghostm_tpu_torch.cli import main as tcli
+from ghostm_tpu_torch.config import Config as TConfig
+from ghostm_tpu_torch.index import diskio as tdiskio
+from tools.simulate import make_dataset
+
+# One intra-op thread: the suite runs several pytest workers at once.
+torch.set_num_threads(1)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+GOLD = os.path.join(HERE, "golden")
+
+
+def test_kill_worker_mid_run_then_resume(tmp_path, monkeypatch):
+    db_fa, reads_fa = make_dataset(
+        str(tmp_path / "fi"), n_proteins=40, n_reads=192, read_len=100,
+        seed=3,
+    )
+    cfgf = str(tmp_path / "cfg.json")
+    with open(cfgf, "w") as f:
+        json.dump({"query_batch": 16, "checkpoint_batches": 1,
+                   "max_hits": 5}, f)
+    prefix = str(tmp_path / "idx")
+    assert tcli(["db", "-i", db_fa, "-o", prefix, "--shards", "2",
+                 "--config", cfgf]) == 0
+    monkeypatch.setenv("GHOSTM_TPU_MERGE_COLOCATED", "0")
+    args = ["aln", "-d", prefix, "-i", reads_fa, "--config", cfgf]
+    # uninterrupted runs: the port's and the JAX package's
+    ref_out = str(tmp_path / "ref.tsv")
+    assert tcli(args + ["--device", "cpu", "-o", ref_out]) == 0
+    jax_out = str(tmp_path / "jax.tsv")
+    assert jcli(args + ["--no-pallas", "-o", jax_out]) == 0
+    with open(ref_out) as f, open(jax_out) as g:
+        want = f.read()
+        assert want == g.read()
+    n_parts_total = len([p for p in os.listdir(ref_out + ".parts")
+                         if p.startswith("part-")])
+    assert n_parts_total == 12
+
+    # victim run: SIGKILL once >= 1 part exists and < all parts exist
+    out = str(tmp_path / "hits.tsv")
+    parts = out + ".parts"
+    cmd = [sys.executable, "-m", "ghostm_tpu_torch"] + args + [
+        "--device", "cpu", "-o", out]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL)
+    killed = False
+    deadline = time.time() + 60
+    try:
+        while time.time() < deadline and proc.poll() is None:
+            if os.path.isdir(parts):
+                done = [p for p in os.listdir(parts)
+                        if p.startswith("part-") and p.endswith(".tsv")]
+                if 1 <= len(done) < n_parts_total:
+                    os.kill(proc.pid, signal.SIGKILL)
+                    killed = True
+                    break
+            time.sleep(0.01)
+    finally:
+        if proc.poll() is None and not killed:
+            proc.kill()
+        proc.wait(timeout=30)
+    assert killed, "never reached the kill window"
+    survivors = [p for p in os.listdir(parts) if p.startswith("part-")]
+    assert 0 < len(survivors) < n_parts_total
+
+    # restart with --resume: must complete and match byte for byte
+    r = subprocess.run(cmd + ["--resume"], cwd=REPO, env=env,
+                       capture_output=True, timeout=120)
+    assert r.returncode == 0, r.stderr.decode()[-800:]
+    assert b"resuming after" in r.stderr
+    with open(out) as f:
+        assert f.read() == want
+
+
+def test_check_mode_clean_golden(tmp_path):
+    """--check raises nothing on the config-1 golden and writes its table,
+    as the run without it does."""
+    prefix = str(tmp_path / "idx")
+    assert tcli(["db", "-i", os.path.join(GOLD, "config1_db.fa"), "-o",
+                 prefix]) == 0
+    base = ["aln", "-d", prefix, "-i", os.path.join(GOLD,
+                                                    "config1_reads.fa"),
+            "--device", "cpu", "--batch", "128"]
+    out1, out2 = str(tmp_path / "a.tsv"), str(tmp_path / "b.tsv")
+    assert tcli(base + ["-o", out1]) == 0
+    assert tcli(base + ["-o", out2, "--check"]) == 0
+    with open(out1) as f, open(out2) as g, \
+            open(os.path.join(GOLD, "config1_hits.tsv")) as h:
+        a = f.read()
+        assert a == g.read() == h.read()
+
+
+@pytest.fixture(scope="module")
+def small(tmp_path_factory):
+    """A 40-protein index (k = 3) and 16 reads' host-translated frames."""
+    d = tmp_path_factory.mktemp("ck")
+    db_fa, reads_fa = make_dataset(str(d / "ck"), n_proteins=40,
+                                   n_reads=16, read_len=100, seed=4)
+    prefix = str(d / "idx")
+    assert jcli(["db", "-i", db_fa, "-o", prefix]) == 0
+    _, dna, lens = next(read_batches(reads_fa, 16, 120))
+    return prefix, dna, lens
+
+
+def _aux_rows(cbits, rows_of):
+    """Corrupt every aligned row/count word's row, keeping its count."""
+    def f(aux, nrows):
+        count = aux & ((1 << cbits) - 1)
+        return ((rows_of(nrows) << cbits) | count).astype(np.int32)
+    return f
+
+
+# (table mode, the array corrupted, the corruption, both raise?)
+CORRUPT = {
+    "clean": ("direct", None, None, False),
+    # packed values past every subject row: the vote clamps the row
+    "direct_entry_past_rows": (
+        "direct", "tab_main",
+        lambda t, n: np.where(t < tengine.DIRECT_SENT,
+                              np.int32(tengine.DIRECT_SENT - 1), t), False),
+    # aligned row/count words whose row is past the table: unclamped gather
+    "aligned_row_past_table": ("aligned", "tab_aux", "past", True),
+    # a row in [-n, -1]: jnp wraps it to n + row (fault F4)
+    "aligned_row_negative": ("aligned", "tab_aux", "negative", False),
+    "aligned_row_below_table": ("aligned", "tab_aux", "below", True),
+    # seed positions past the buffer (subject-local offsets)
+    "csr_position_past_buffer": (
+        "csr", "tab_aux", lambda t, n: (t + (1 << 20)).astype(np.int32),
+        False),
+    # bucket bounds out of order: the CSR index is clamped
+    "csr_bucket_starts": (
+        "csr", "bucket_starts", lambda t, n: t[::-1].copy(), False),
+}
+
+
+@pytest.mark.parametrize("case", list(CORRUPT))
+def test_check_raises_where_jax_raises(small, monkeypatch, case):
+    """The same corrupted seed tables in the JAX engine (checkify over its
+    XLA phases) and in the port's (the step's route with bounds
+    asserts): both raise, or both pass and give the same hits."""
+    mode, key, corrupt, raises = CORRUPT[case]
+    prefix, dna, lens = small
+    for mod in (jengine, tengine):
+        if mode == "aligned":
+            monkeypatch.setattr(mod, "DIRECT_TABLE_CAP", 1024)
+        elif mode == "csr":
+            monkeypatch.setattr(mod, "_packed_value_bound",
+                                lambda *a: 1 << 40)
+    jeng = jengine.SearchEngine(JConfig(query_batch=16),
+                                jdiskio.load_index(prefix), use_pallas=False)
+    teng = tengine.SearchEngine(TConfig(query_batch=16),
+                                tdiskio.load_index(prefix), device="cpu")
+    assert jeng.table_mode == teng.table_mode == mode
+    if key is not None:
+        ncols = int(teng.table_width).bit_length()
+        nrows = teng.shard_dev[0]["tab_main"].shape[0]
+        if isinstance(corrupt, str):
+            corrupt = _aux_rows(ncols, {
+                "past": lambda n: np.int32(n + 7),
+                "negative": lambda n: np.int32(-3),
+                "below": lambda n: np.int32(-(n + 5)),
+            }[corrupt])
+        for d, to in ((jeng.shard_dev[0], jnp.asarray),
+                      (teng.shard_dev[0], torch.from_numpy)):
+            d[key] = to(corrupt(np.asarray(d[key]), nrows))
+    q = jeng.translate(dna, lens)
+    np.testing.assert_array_equal(q, teng.translate(dna, lens))
+    try:
+        want, jerr = jeng.search_batch_checked(q), None
+    except checkify.JaxRuntimeError as e:
+        want, jerr = None, e
+    try:
+        got, terr = teng.search_batch_checked(q), None
+    except IndexError as e:
+        got, terr = None, e
+    assert (jerr is not None) == raises, jerr
+    assert (terr is not None) == raises, terr
+    if raises:
+        assert "out-of-bounds" in str(jerr) or "out of bounds" in str(jerr)
+        assert "propose: aligned table row" in str(terr)
+        return
+    for f in ("score", "gsid", "frame", "qend", "s_end", "bend", "g0",
+              "srow", "shard"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), f)
+    if case == "clean":
+        assert got.score.max() > 0, "no hits: the comparison is vacuous"
+        step = teng.search_packed(torch.from_numpy(q)).numpy()
+        np.testing.assert_array_equal(step[0], got.score)
+
+
+@pytest.mark.parametrize("bad", [100, -7, 32])
+def test_codes_outside_the_alphabet_refused(small, bad):
+    """Fault F5: a residue code outside [0, 32) indexes past the port's
+    score tables (the JAX package's one-hot contractions score it 0 and
+    pass --check). The port refuses it: in the frames search_batch_checked
+    gets, and in an index buffer at engine init."""
+    import dataclasses
+
+    prefix, dna, lens = small
+    jeng = jengine.SearchEngine(JConfig(query_batch=16),
+                                jdiskio.load_index(prefix), use_pallas=False)
+    tidx = tdiskio.load_index(prefix)
+    teng = tengine.SearchEngine(TConfig(query_batch=16), tidx, device="cpu")
+    q = jeng.translate(dna, lens)
+    q[:, :, 5] = np.int8(bad)
+    assert jeng.search_batch_checked(q).score.shape == (16, 10)
+    with pytest.raises(ValueError, match=r"qcodes holds residue codes"):
+        teng.search_batch_checked(q)
+    buffers = tidx.buffers.copy()
+    buffers[0, 40] = np.int8(bad)
+    with pytest.raises(ValueError, match=r"index buffer holds residue"):
+        tengine.SearchEngine(TConfig(query_batch=16),
+                             dataclasses.replace(tidx, buffers=buffers),
+                             device="cpu")

@@ -50,8 +50,8 @@ def test_config1_blosum50_golden_cpu(tmp_path, db_pkg):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--check"], ["--data-axis", "2"], ["--num-processes", "2"],
-    ["--debug-nans"], ["--profile", "p"],
+    ["--coordinator", "h:1"], ["--data-axis", "2"], ["--num-processes", "2"],
+    ["--db-axis", "2"], ["--cpu", "2"],
 ])
 def test_cli_rejects_unported_flags(tmp_path, capsys, flags):
     with pytest.raises(SystemExit) as e:

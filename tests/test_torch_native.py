@@ -1,0 +1,268 @@
+"""The port's native host code (ghostm_tpu_torch/native.py over its own copy
+of the C++, built by g++ into build/native/) against its Python / numpy
+paths and against the JAX package on the same seeded inputs: the
+counting-sort seed index, the keep mask, the FASTA reader, the m8 row
+formatter (byte for byte, e-values that round across a decade and
+non-ASCII utf-8 names included) and write_hits through a SubjectNames.
+Tolerance: exact equality (arrays and bytes)."""
+
+import io
+import logging
+import os
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from ghostm_tpu import native as jnative
+from ghostm_tpu.config import Config as JConfig
+from ghostm_tpu.engine import BatchHits as JBatchHits
+from ghostm_tpu.index import seeds as jseeds
+from ghostm_tpu.io.fasta import iter_fasta as jiter_fasta
+from ghostm_tpu.ops.encode import encode_aa as jencode_aa
+from ghostm_tpu.report import SubjectNames as JSubjectNames
+from ghostm_tpu.report import write_hits as jwrite_hits
+from ghostm_tpu_torch import native
+from ghostm_tpu_torch.config import Config
+from ghostm_tpu_torch.engine import BatchHits
+from ghostm_tpu_torch.index import seeds
+from ghostm_tpu_torch.ops.encode import SENTINEL
+from ghostm_tpu_torch.report import SubjectNames, _name_arena, write_hits
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture
+def lib():
+    if not native.available():
+        pytest.fail("the port's host library did not build: these tests "
+                    "need a C++ compiler ($CXX, default g++)")
+    return native
+
+
+def _numpy_csr(buf, k, keep=None):
+    keys = seeds.kmer_keys(buf, k)
+    valid = keys < 20**k
+    if keep is not None:
+        valid &= keep[: len(keys)]
+    vkeys = keys[valid]
+    vpos = np.nonzero(valid)[0].astype(np.int32)
+    counts = np.bincount(vkeys, minlength=20**k)
+    bucket_starts = np.zeros(20**k + 2, dtype=np.int64)
+    np.cumsum(counts, out=bucket_starts[1 : 20**k + 1])
+    bucket_starts[20**k + 1] = bucket_starts[20**k]
+    order = np.argsort(vkeys, kind="stable")
+    return vpos[order], bucket_starts.astype(np.int32)
+
+
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_kmer_csr_matches_numpy_and_jax(lib, rng, k):
+    buf = rng.integers(0, 26, size=5000).astype(np.int8)  # invalid codes too
+    pos_c, bs_c = lib.kmer_csr(buf, k)
+    pos_n, bs_n = _numpy_csr(buf, k)
+    np.testing.assert_array_equal(pos_c, pos_n)
+    np.testing.assert_array_equal(bs_c, bs_n)
+    ref = jseeds.build_seed_index(buf, k)
+    np.testing.assert_array_equal(pos_c, ref.positions)
+    np.testing.assert_array_equal(bs_c, ref.bucket_starts)
+    assert pos_c.dtype == bs_c.dtype == np.int32
+
+
+def test_kmer_csr_keep_mask(lib, rng):
+    buf = rng.integers(0, 20, size=2000).astype(np.int8)
+    keep = rng.random(len(buf)) < 0.5
+    pos_c, bs_c = lib.kmer_csr(buf, 3, keep)
+    pos_n, bs_n = _numpy_csr(buf, 3, keep)
+    np.testing.assert_array_equal(pos_c, pos_n)
+    np.testing.assert_array_equal(bs_c, bs_n)
+    ref = jseeds.build_seed_index(buf, 3, keep)
+    np.testing.assert_array_equal(pos_c, ref.positions)
+    np.testing.assert_array_equal(bs_c, ref.bucket_starts)
+
+
+def test_build_seed_index_native_route_equals_numpy_and_jax(
+        lib, rng, monkeypatch):
+    """build_seed_index takes kmer_csr (counted as the native route); the
+    numpy route gives the same index, and both equal the JAX package's."""
+    buf = np.concatenate([
+        rng.integers(0, 20, size=300).astype(np.int8),
+        np.full(8, SENTINEL, np.int8),
+        rng.integers(0, 25, size=300).astype(np.int8),
+    ])
+    keep = rng.random(len(buf)) < 0.7
+    native.reset_calls()
+    got = seeds.build_seed_index(buf, 3, keep)
+    assert native.CALLS[("kmer_csr", "native")] == 1
+    monkeypatch.setattr(native, "_load", lambda: None)
+    slow = seeds.build_seed_index(buf, 3, keep)
+    assert native.CALLS[("kmer_csr", "python")] == 1
+    ref = jseeds.build_seed_index(buf, 3, keep)
+    for idx in (slow, ref):
+        np.testing.assert_array_equal(got.positions, idx.positions)
+        np.testing.assert_array_equal(got.bucket_starts, idx.bucket_starts)
+
+
+FASTA = (">s0 desc ignored\nARNDCQ\nEGHIK\n\n>s1\nmfpst*\n>empty\n>s3\tx\r\n"
+         "WYV UOJ\r\nbzx\n>s4\n" + "ACDEFGHIKLMNPQRSTVWY" * 7 + "\n")
+
+
+def test_fasta_reader_matches_jax(lib, tmp_path):
+    p = tmp_path / "t.fa"
+    p.write_text(FASTA)
+    native.reset_calls()
+    names, seqs = lib.read_fasta_protein(str(p))
+    assert native.CALLS[("read_fasta_protein", "native")] == 1
+    assert names == ["s0", "s1", "empty", "s3", "s4"]
+    assert len(seqs[2]) == 0
+    # the JAX package's native reader where its library loads, else its
+    # Python reader (iter_fasta + encode_aa)
+    ref = jnative.read_fasta_protein(str(p))
+    if ref is None:
+        recs = list(jiter_fasta(str(p)))
+        ref = ([n for n, _ in recs], [jencode_aa(s) for _, s in recs])
+    assert names == ref[0]
+    for a, b in zip(seqs, ref[1]):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == np.int8
+    assert lib.read_fasta_protein(str(tmp_path / "missing.fa")) is None
+
+
+def _m8_columns(rng, n):
+    pid = rng.random(n) * 100
+    pid[:16] = [0.125, 99.995, 100.0, 0.005, 2.675, 33.335, 66.665, 0.0,
+                12.345, 87.655, 0.015, 0.025, 49.995, 50.005, 1.115, 3.885]
+    ev = 10.0 ** (rng.random(n) * 40 - 35)
+    # rounding across a decade (9.996e-10 -> 1.00e-09), ties, extremes
+    ev[:10] = [0.0, 1e-300, 9.996e-10, 2.5e-3, 9.999, 1.0, 9.9951e-5,
+               0.0099999, 99.95, 1e-99]
+    bits = rng.random(n) * 500
+    bits[:6] = [0.05, 0.15, 0.25, 99.95, 123.45, 0.0]
+    ints = [rng.integers(0, 2**31 - 1, n).astype(np.int32) for _ in range(3)]
+    i64s = [rng.integers(-2**40, 2**40, n).astype(np.int64)
+            for _ in range(4)]
+    return pid, ints, i64s, ev, bits
+
+
+def test_m8_format_fuzz_matches_python(lib, rng):
+    """C printf reproduces CPython's f-string bytes for every column
+    format, utf-8 names included; the JAX package's formatter (where its
+    library loads) writes the same bytes."""
+    n = 4096
+    pid, ints, i64s, ev, bits = _m8_columns(rng, n)
+    qnames = [f"q{i}" + ("_é" if i % 7 == 0 else "") for i in range(n)]
+    snames = [f"subj_{i}" + ("_名前" if i % 5 == 0 else "")
+              for i in range(n)]
+    qarena, qoff = _name_arena(qnames)
+    sarena, soff = _name_arena(snames)
+    idx = np.arange(n, dtype=np.int32)
+    srow = idx[::-1].copy()
+    cols = (pid, ints[0], ints[1], ints[2], *i64s, ev, bits)
+    got = lib.m8_format(idx, qarena, qoff, srow, sarena, soff, *cols)
+    want = "".join(
+        f"{qnames[i]}\t{snames[srow[i]]}\t{pid[i]:.2f}\t{ints[0][i]}\t"
+        f"{ints[1][i]}\t{ints[2][i]}\t{i64s[0][i]}\t{i64s[1][i]}\t"
+        f"{i64s[2][i]}\t{i64s[3][i]}\t{ev[i]:.2e}\t{bits[i]:.1f}\n"
+        for i in range(n)
+    )
+    assert got.decode() == want
+    assert "1.00e-09" in want   # the decade case is in the data
+    ref = jnative.m8_format(idx, qarena, qoff, srow, sarena, soff, *cols)
+    if ref is not None:
+        assert got == ref
+    assert lib.m8_format(idx[:0], qarena, qoff, srow[:0], sarena, soff,
+                         *(c[:0] for c in cols)) == b""
+
+
+def _hits(seed=7, R=128, K=5, nsub=500):
+    rng2 = np.random.default_rng(seed)
+    z = np.zeros((R, K), np.int32)
+    fields = (
+        rng2.integers(0, 120, (R, K)).astype(np.int32),
+        rng2.integers(0, nsub, (R, K)).astype(np.int32),
+        rng2.integers(0, 6, (R, K)).astype(np.int32),
+        rng2.integers(10, 33, (R, K)).astype(np.int32),
+        rng2.integers(50, 300, (R, K)).astype(np.int32),
+        rng2.integers(10, 33, (R, K)).astype(np.int32), z, z, z,
+    )
+    stats = {
+        k: rng2.integers(0, 30, (R, K)).astype(np.int32)
+        for k in ("qstart", "qend", "sstart", "send", "length", "matches",
+                  "mismatch", "gapopen")
+    }
+    stats["length"] = np.maximum(stats["length"], 1)
+    return fields, stats
+
+
+def test_write_hits_native_equals_python_and_jax(lib):
+    """write_hits with a SubjectNames (the C formatter) writes the bytes of
+    the Python loop (a plain dict) and of the JAX package's write_hits
+    (both routes), with non-ASCII utf-8 names."""
+    R, K = 128, 5
+    fields, stats = _hits(R=R, K=K)
+    names = [f"read{i}" + ("_ü" if i % 3 == 0 else "") for i in range(R)]
+    d = {i: f"s{i}" + ("_ß" if i % 4 == 0 else "") for i in range(500)}
+    lens = np.full(R, 100, np.int32)
+    outs, rows = [], []
+    for wh, Cfg, BH, SN in ((write_hits, Config, BatchHits, SubjectNames),
+                            (jwrite_hits, JConfig, JBatchHits,
+                             JSubjectNames)):
+        cfg = Cfg(query_batch=R, seed_len=4)
+        for sn in (d, SN(d)):
+            b = io.StringIO()
+            rows.append(wh(b, cfg, names, lens, sn, BH(*fields), stats,
+                           10**6, 500))
+            outs.append(b.getvalue())
+    native.reset_calls()
+    timing = {}
+    b = io.StringIO()
+    write_hits(b, Config(query_batch=R, seed_len=4), names, lens,
+               SubjectNames(d), BatchHits(*fields), stats, 10**6, 500,
+               timing=timing)
+    assert native.CALLS[("m8_format", "native")] == 1
+    assert set(timing) == {"columns_s", "format_s", "write_s"}
+    assert rows[0] > 0 and len(set(rows)) == 1
+    assert all(o == outs[0] for o in outs + [b.getvalue()])
+
+
+def test_python_route_without_a_compiler(tmp_path, monkeypatch, caplog):
+    """No compiler: one warning, every function returns None (counted as
+    the Python route), and write_hits through a SubjectNames writes the
+    bytes of the native route."""
+    fields, stats = _hits()
+    d = {i: f"s{i}" for i in range(500)}
+    names = [f"read{i}" for i in range(128)]
+    lens = np.full(128, 100, np.int32)
+    cfg = Config(query_batch=128, seed_len=4)
+    want = io.StringIO()
+    assert native.available()
+    write_hits(want, cfg, names, lens, SubjectNames(d), BatchHits(*fields),
+               stats, 10**6, 500)
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    monkeypatch.setattr(native, "_tried", False)
+    monkeypatch.setattr(native, "_lib", None)
+    native.reset_calls()
+    with caplog.at_level(logging.WARNING, logger="ghostm_tpu_torch.native"):
+        assert not native.available()
+        assert not native.available()
+        got = io.StringIO()
+        write_hits(got, cfg, names, lens, SubjectNames(d),
+                   BatchHits(*fields), stats, 10**6, 500)
+        assert native.kmer_csr(np.zeros(10, np.int8), 2) is None
+    warnings = [r for r in caplog.records if r.levelno == logging.WARNING]
+    assert len(warnings) == 1 and "no C++ compiler" in warnings[0].message
+    assert native.CALLS[("m8_format", "python")] == 1
+    assert native.CALLS[("kmer_csr", "python")] == 1
+    assert got.getvalue() == want.getvalue()
+
+
+def test_library_builds_into_build_native(lib):
+    """The port loads its own build of its own source from build/native/,
+    named by a hash of the source, compiler and flags; never the JAX
+    package's native/libghostm_native.so."""
+    path = Path(lib._lib._name).resolve()
+    assert path.parent == ROOT / "build" / "native"
+    assert path == lib.lib_path(os.environ.get("CXX", "g++")).resolve()
+    assert path.name.startswith("libghostm_native-") and path.suffix == ".so"
+    assert lib.SOURCE == ROOT / "ghostm_tpu_torch" / "csrc" / "host" \
+        / "ghostm_native.cpp"
+    assert (ROOT / "native") not in path.parents

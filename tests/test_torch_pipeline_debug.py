@@ -1,0 +1,189 @@
+"""The port's debug and observability hooks on the CPU: GHOSTM_TPU_SYNC_PIPELINE
+(batch i flushed before batch i + 1 is launched, the same bytes),
+--profile (torch.profiler's Chrome trace), GHOSTM_TPU_HBM_LOG on a CPU
+engine (no file, a log line saying why), --debug-nans, the CLI's flags
+(the debug flags accepted; the mesh and multi-process flags still
+rejected), and run_search's host split. The config-1 golden is the
+expected table throughout (byte for byte)."""
+
+import json
+import logging
+import os
+
+import pytest
+import torch
+
+from ghostm_tpu_torch import engine as tengine
+from ghostm_tpu_torch import native, pipeline
+from ghostm_tpu_torch.cli import main as tcli
+from ghostm_tpu_torch.config import Config
+from ghostm_tpu_torch.index.diskio import load_index
+from ghostm_tpu_torch.io.fasta import read_batches
+from ghostm_tpu_torch.utils.metrics import MetricsLog
+
+torch.set_num_threads(1)
+
+GOLD = os.path.join(os.path.dirname(__file__), "golden")
+DB = os.path.join(GOLD, "config1_db.fa")
+READS = os.path.join(GOLD, "config1_reads.fa")
+
+
+@pytest.fixture(scope="module")
+def index(tmp_path_factory):
+    prefix = str(tmp_path_factory.mktemp("dbg") / "idx")
+    assert tcli(["db", "-i", DB, "-o", prefix]) == 0
+    return prefix
+
+
+def _golden():
+    with open(os.path.join(GOLD, "config1_hits.tsv")) as f:
+        return f.read()
+
+
+@pytest.fixture(autouse=True)
+def _no_debug_nans(monkeypatch):
+    """--debug-nans is process-wide: set it back after each test."""
+    monkeypatch.setattr(tengine, "DEBUG_NANS", False)
+
+
+def _aln(prefix, out, *flags):
+    return tcli(["aln", "-d", prefix, "-i", READS, "-o", out, "--device",
+                 "cpu", *flags])
+
+
+@pytest.mark.parametrize("sync", ["0", "1"])
+def test_sync_pipeline_order_and_bytes(index, tmp_path, monkeypatch, sync):
+    """4 batches of 32 reads: with GHOSTM_TPU_SYNC_PIPELINE=1 each batch is
+    written before the next is launched; without it batch i + 1 is
+    launched first. The table is the golden either way."""
+    events = []
+    launch = tengine.SearchEngine.search_refine_async_dna
+    write = pipeline.write_hits
+
+    def launch_(self, dna, lens):
+        events.append("launch")
+        return launch(self, dna, lens)
+
+    def write_(*a, **k):
+        events.append("write")
+        return write(*a, **k)
+
+    monkeypatch.setattr(tengine.SearchEngine, "search_refine_async_dna",
+                        launch_)
+    monkeypatch.setattr(pipeline, "write_hits", write_)
+    monkeypatch.setenv("GHOSTM_TPU_SYNC_PIPELINE", sync)
+    out = str(tmp_path / "hits.tsv")
+    assert _aln(index, out, "--batch", "32") == 0
+    with open(out) as f:
+        assert f.read() == _golden()
+    assert events.count("launch") == events.count("write") == 4
+    if sync == "1":
+        assert events == ["launch", "write"] * 4
+    else:
+        assert events[:2] == ["launch", "launch"]
+
+
+def test_sync_pipeline_with_checkpoints(index, tmp_path, monkeypatch):
+    monkeypatch.setenv("GHOSTM_TPU_SYNC_PIPELINE", "1")
+    cfgf = tmp_path / "cfg.json"
+    cfgf.write_text(json.dumps({"checkpoint_batches": 1}))
+    out = str(tmp_path / "hits.tsv")
+    assert _aln(index, out, "--batch", "32", "--config", str(cfgf)) == 0
+    with open(out) as f:
+        assert f.read() == _golden()
+    assert len([p for p in os.listdir(out + ".parts")
+                if p.startswith("part-")]) == 4
+
+
+def test_profile_writes_a_trace(index, tmp_path):
+    out, prof = str(tmp_path / "hits.tsv"), str(tmp_path / "prof")
+    assert _aln(index, out, "--batch", "128", "--profile", prof) == 0
+    with open(out) as f:
+        assert f.read() == _golden()
+    path = os.path.join(prof, "trace.json")
+    assert os.path.getsize(path) > 0
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+
+
+def test_hbm_log_on_a_cpu_engine(index, tmp_path, monkeypatch, caplog):
+    """A CPU engine has no allocator statistics: GHOSTM_TPU_HBM_LOG writes
+    no file and the run logs one line saying so."""
+    log_path = tmp_path / "hbm.json"
+    monkeypatch.setenv("GHOSTM_TPU_HBM_LOG", str(log_path))
+    cfg = Config(query_batch=128)
+    eng = tengine.SearchEngine(cfg, load_index(index), device="cpu")
+    out = str(tmp_path / "hits.tsv")
+    with caplog.at_level(logging.INFO, logger="ghostm_tpu_torch.pipeline"):
+        rows = pipeline.run_search(eng, read_batches(READS, 128, 120), out)
+    assert rows == 549
+    assert not log_path.exists()
+    why = [r.message for r in caplog.records if "GHOSTM_TPU_HBM_LOG" in
+           r.message]
+    assert len(why) == 1 and "CPU engine" in why[0]
+
+
+def test_run_search_host_split(index, tmp_path):
+    """run_search fills a caller's MetricsLog: the one-time set-up (the
+    name map and its arena) and, per batch, fetch + unpack, the
+    vectorised columns, formatting and the write; the rows go through the
+    native formatter."""
+    eng = tengine.SearchEngine(Config(query_batch=32), load_index(index),
+                               device="cpu")
+    m = MetricsLog()
+    native.reset_calls()
+    out = str(tmp_path / "hits.tsv")
+    assert pipeline.run_search(eng, read_batches(READS, 32, 120), out,
+                               metrics=m) == 549
+    with open(out) as f:
+        assert f.read() == _golden()
+    assert m.setup_s > 0 and len(m.batches) == 4
+    for b in m.batches:
+        assert min(b.fetch_s, b.columns_s, b.format_s, b.write_s) > 0
+    assert native.CALLS[("m8_format", "native")] == 4
+    assert native.CALLS[("m8_format", "python")] == 0
+
+
+def test_debug_nans(index, tmp_path):
+    """--debug-nans turns the process-wide NaN check on (the run writes
+    the golden: every stage returns integers); the check names the stage
+    of a floating output that holds a NaN."""
+    out = str(tmp_path / "hits.tsv")
+    assert _aln(index, out, "--batch", "128", "--debug-nans") == 0
+    assert tengine.DEBUG_NANS
+    with open(out) as f:
+        assert f.read() == _golden()
+    bad = torch.tensor([1.0, float("nan")])
+    with pytest.raises(FloatingPointError, match="stage refine"):
+        tengine._check_nans("refine", torch.zeros(2, dtype=torch.int32), bad)
+    tengine.DEBUG_NANS = False
+    tengine._check_nans("refine", bad)            # off: no check
+    with pytest.raises(FloatingPointError, match="stage align"):
+        tengine._check_nans("align", bad, check=True)
+
+
+def test_cli_accepts_the_debug_flags(index, tmp_path, monkeypatch):
+    """--check, --debug-nans and --profile together, with both variables
+    set: the golden's bytes."""
+    monkeypatch.setenv("GHOSTM_TPU_SYNC_PIPELINE", "1")
+    monkeypatch.setenv("GHOSTM_TPU_HBM_LOG", str(tmp_path / "hbm.json"))
+    out = str(tmp_path / "hits.tsv")
+    assert _aln(index, out, "--batch", "128", "--check", "--debug-nans",
+                "--profile", str(tmp_path / "prof")) == 0
+    with open(out) as f:
+        assert f.read() == _golden()
+    assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+
+
+@pytest.mark.parametrize("flags", [
+    ["--data-axis", "2"], ["--db-axis", "2"], ["--coordinator", "h:1"],
+    ["--num-processes", "2"], ["--process-id", "1"], ["--cpu", "2"],
+])
+def test_cli_still_rejects_mesh_flags(tmp_path, capsys, flags):
+    with pytest.raises(SystemExit) as e:
+        tcli(["aln", "-d", "x", "-i", READS, "-o", str(tmp_path / "h"),
+              "--device", "cpu", *flags])
+    assert e.value.code == 2
+    assert "not ported yet" in capsys.readouterr().err
+
