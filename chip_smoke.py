@@ -49,6 +49,12 @@ Phases, each printing one JSON line ({"phase": ...}):
            `--profile DIR` and GHOSTM_TPU_HBM_LOG=FILE (the trace must be
            non-empty, the log must hold the four keys with
            peak_bytes_in_use > 0); each byte-compared with config1_hits.tsv;
+  golden_grid_{data2,db2}  the config-1 golden through `aln --device
+           cuda --data-axis 2` (1-shard index) and `--db-axis 2` (`db
+           --shards 2`): aln starts two local ranks on the one card
+           (gloo); each rank writes its launch counts
+           (GHOSTM_TPU_LAUNCH_COUNTS): B2, B3 and B4 on every rank, B4's
+           3-key select rows on each rank of the db grid; byte-compared;
   golden_longread  `db` + `aln --config tests/golden/longread_cfg.json
            --max-read-len 5300` (5 kbp reads, collinear chaining: B1, the
            chained vote, B3, B4), byte-compared with
@@ -66,6 +72,16 @@ Phases, each printing one JSON line ({"phase": ...}):
            and Python (`scale_m8_routes`: each route's ms, the bytes
            equal); a 256-read batch cross-checked against the same engine
            on device="cpu";
+  mesh_scale_2x1  `scale`'s index saved with save_index, searched by a
+           (2, 1) grid of two ranks on the card (MESH_CHILD: each loads
+           the index, builds its engine, takes 4096 reads of each batch
+           through search_batch_stats and gathers the whole batch over
+           "data"); 1 warm + 3 timed batches of `scale`'s reads; rank 0's
+           payload of every batch equal to the `scale` engine's, all 18
+           rows; B1, B2's merge entry, B3 and B4 on every rank; per rank
+           reads/s (median / min / max), the collectives' ms a batch
+           (synchronised around each, apart from the step) and peak
+           device memory;
   scale_b50  the same index and reads scored with BLOSUM50 13/2 (the
            score-fed route, B5; 1 warm + 3 timed batches, a stage
            breakdown, the 256-read CPU cross-check);
@@ -95,10 +111,17 @@ Phases, each printing one JSON line ({"phase": ...}):
            merge check, so the per-shard loop on CSR tables, B4's 3-key
            select and B3 twice a batch; the same reads; the CPU
            cross-check, and one batch's payload rows 0-5 and 9-17 equal to
-           swissprot_tail's; then B2's monolithic entry at each leg's CSR
-           rows as kernel rows.
+           swissprot_tail's;
+  mesh_tail_1x2  the same 2-shard index on a (1, 2) grid, a shard a rank
+           (CSR tables decided over both shards), the same 1 warm + 3
+           timed batches; rank 0's payload of every batch equal to
+           swissprot_tail_2shard's, all 18 rows; B2's monolithic entry,
+           B3, B4's 3-key select and B4's rank on every rank; the same
+           per-rank numbers as mesh_scale_2x1; then B2's monolithic entry
+           at each leg's CSR rows as kernel rows.
 The launch counters are set to 0 just before each main-path run (each
-golden aln and each scale leg's timed run) and read just after; every
+golden aln and each scale leg's timed run; in each rank of a grid) and
+read just after; every
 kernel of that path must have launched in its run. The wrappers also
 count launches by input shape (`_build.SHAPES`): each `kernels` row
 reports the launches of its own shape on its path (`launches`) beside the
@@ -118,6 +141,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -149,6 +173,69 @@ TIMED_TAIL = 3               # timed batches of each swissprot_tail leg
 TAIL_BATCH = 8192            # reads a batch there
 # the select's B4 rows at 2 shards: 3 x (frames, 2 x 8 proposals)
 SELECT_SHAPE = lambda frames: (3, frames, 16)
+TIMED_MESH = 3               # timed batches of each grid leg (after 1 warm)
+# One rank of a grid leg: argv = coordinator, rank, data, db, index
+# prefix, the Config's fields as JSON, the batches (.npz), directory. It
+# runs 1 warm + the timed batches through the grid's codes entry (host
+# translate, search_batch_stats: the pipeline's grid path), the launch
+# counters and collective timers set to 0 after the warm batch; rank 0
+# saves each batch's whole (18, R, K) payload. Writes its numbers to
+# rank{rank}.json in the directory.
+MESH_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+from ghostm_tpu_torch.config import Config
+from ghostm_tpu_torch.engine import SearchEngine
+from ghostm_tpu_torch.index.diskio import load_index
+from ghostm_tpu_torch.kernels import _build
+from ghostm_tpu_torch.parallel import mesh as pm
+
+coord, rank, data, db, prefix, cfg, npz, d = sys.argv[1:9]
+rank, data, db = int(rank), int(data), int(db)
+pm.init_distributed(coord, data * db, rank, device="cuda")
+mesh = pm.make_mesh(data, db)
+t0 = time.time()
+index = load_index(prefix)
+load_s = time.time() - t0
+t0 = time.time()
+eng = SearchEngine(Config(**json.loads(cfg)), index,
+                   device=pm.rank_device("cuda", rank), mesh=mesh)
+torch.cuda.synchronize()
+init_s = time.time() - t0
+z = np.load(npz)
+n = len(z.files) // 2
+rps, coll_ms, batch_ms = [], [], []
+for b in range(n):
+    if b == 1:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        mesh.time_collectives = True
+    mesh.collective_s = {}
+    t0 = time.perf_counter()
+    hits, stats = eng.search_batch_stats(
+        eng.translate(z[f"dna{b}"], z[f"lens{b}"]))
+    dt = time.perf_counter() - t0
+    if b:
+        rps.append(hits.score.shape[0] / dt)
+        batch_ms.append(dt * 1e3)
+        coll_ms.append({k: v * 1e3 for k, v in mesh.collective_s.items()})
+    if rank == 0:
+        np.save(f"{d}/payload-b{b}.npy", np.stack(
+            [getattr(hits, f) for f in hits.__dataclass_fields__]
+            + [stats[k] for k in eng.STAT_KEYS] + [stats["score_check"]]))
+res = dict(rank=rank, backend=mesh.backend, device=str(eng.device),
+           shards_held=len(eng.shard_dev), table_mode=eng.table_mode,
+           load_s=load_s, engine_init_s=init_s, reads_per_s=rps,
+           batch_ms=batch_ms, collective_ms=coll_ms,
+           max_memory_allocated=torch.cuda.max_memory_allocated(),
+           launches=_build.LAUNCHES,
+           shapes=[[k[0], [list(x) for x in k[1:]], v]
+                   for k, v in _build.SHAPES.items()])
+with open(f"{d}/rank{rank}.json", "w") as f:
+    json.dump(res, f)
+"""
 # a golden_tables run in a process of its own (DIRECT_TABLE_CAP is read at
 # import): argv = root, index prefix, aln arguments; prints one JSON line
 TABLES_CHILD = r"""
@@ -756,6 +843,7 @@ def golden_phases():
             ("sort_vote_rank_rows", "sw_scored", "lex_rank_rows"),
             forbid=("sw_fused", "sw_wave"))
         tables = golden_tables(prefix, d)
+        grid_goldens(prefix, os.path.join(d, "idx_2shards"), d)
         debug = golden_debug(prefix, d, golden[0])
         cfgf = os.path.join(golds, "longread_cfg.json")
         prefix = os.path.join(d, "idx_lr")
@@ -809,6 +897,127 @@ def golden_debug(prefix: str, d: str, plain: dict) -> dict:
     if sorted(mem) != sorted(HBM_KEYS) or not mem["peak_bytes_in_use"] > 0:
         raise SystemExit(f"{tag}: device-memory log {mem}")
     return runs
+
+
+def grid_goldens(prefix: str, prefix2: str, d: str) -> None:
+    """The config-1 golden through the port's CLI on CUDA as a grid of two
+    local ranks on the card (`aln` starts them itself): `--data-axis 2`
+    over the 1-shard index and `--db-axis 2` over `db --shards 2`; each
+    byte-identical. Each rank writes its launch counts
+    (GHOSTM_TPU_LAUNCH_COUNTS, set just before the run): B2, B3 and B4
+    must launch on every rank, B4's 3-key select rows on each rank of the
+    db grid."""
+    from ghostm_tpu_torch.cli import main as cli
+
+    golds = os.path.join(ROOT, "tests", "golden")
+    need = ("sort_vote_rank_rows", "sw_fused", "lex_rank_rows")
+    for tag, idx, data, db in (("golden_grid_data2", prefix, 2, 1),
+                               ("golden_grid_db2", prefix2, 1, 2)):
+        out = os.path.join(d, f"{tag}.tsv")
+        counts = os.path.join(d, f"{tag}-launches")
+        os.environ["GHOSTM_TPU_LAUNCH_COUNTS"] = counts
+        t0 = time.time()
+        try:
+            rc = cli(["aln", "-d", idx, "-i", os.path.join(
+                golds, "config1_reads.fa"), "-o", out, "--device", "cuda",
+                "--batch", "128", "--data-axis", str(data), "--db-axis",
+                str(db)])
+        finally:
+            del os.environ["GHOSTM_TPU_LAUNCH_COUNTS"]
+        wall = time.time() - t0
+        if rc != 0:
+            raise SystemExit(f"{tag}: aln failed ({rc})")
+        ranks = []
+        for r in range(data * db):
+            with open(f"{counts}.r{r}.json") as f:
+                ranks.append(json.load(f))
+        with open(out) as f, open(os.path.join(golds,
+                                               "config1_hits.tsv")) as g:
+            match = f.read() == g.read()
+        select = ("lex_rank_rows", SELECT_SHAPE(768))
+        shapes = [{(k, *map(tuple, xs)): v for k, xs, v in c["shapes"]}
+                  for c in ranks]
+        emit(phase=tag, match=match, aln_s=wall, ranks=data * db,
+             kernel_launches=[per_kernel(c["launches"]) for c in ranks],
+             select_launches=[sh.get(select, 0) for sh in shapes])
+        if not match:
+            raise SystemExit(f"{tag}: the grid's hit table differs from "
+                             "tests/golden/config1_hits.tsv")
+        for r, (c, sh) in enumerate(zip(ranks, shapes)):
+            for k in need:
+                if c["launches"][k] == 0:
+                    raise SystemExit(f"{tag}: kernel {k} was never launched "
+                                     f"on rank {r}")
+            if db > 1 and not sh.get(select):
+                raise SystemExit(f"{tag}: B4's 3-key select never launched "
+                                 f"on rank {r}")
+
+
+def mesh_leg(tag: str, prefix: str, cfg, batches, wants, data: int, db: int,
+             need, d: str) -> None:
+    """One grid leg on the card: data x db ranks (MESH_CHILD), two sharing
+    the one card over gloo, each holding its own shard of the index at
+    `prefix`; 1 warm + the timed batches. Rank 0's whole payload of every
+    batch must equal `wants` (the loop engine's on the same reads, all 18
+    rows); every rank must launch each (wrapper, shape or None) of `need`
+    in its timed run. Prints per rank reads/s (median / min / max), the
+    collectives' ms a batch (synchronised around each, apart from the
+    step) and peak device memory."""
+    import dataclasses
+
+    from ghostm_tpu_torch.parallel import launch
+
+    npz = os.path.join(d, f"{tag}.npz")
+    np.savez(npz, **{f"{k}{b}": x for b, (_, dna, lens) in enumerate(batches)
+                     for k, x in (("dna", dna), ("lens", lens))})
+    cfgj = json.dumps(dataclasses.asdict(cfg))
+    t0 = time.time()
+    rc = launch.wait_ranks(launch.start_ranks(
+        lambda r, coord: [sys.executable, "-c", MESH_CHILD, coord, str(r),
+                          str(data), str(db), prefix, cfgj, npz, d],
+        data * db), timeout=900)
+    wall = time.time() - t0
+    if rc != 0:
+        raise SystemExit(f"{tag}: a rank failed ({rc})")
+    ranks = []
+    for r in range(data * db):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    equal = [bool(np.array_equal(np.load(os.path.join(d, f"payload-b{b}.npy")),
+                                 w)) for b, w in enumerate(wants)]
+    per_rank = []
+    for c in ranks:
+        shapes = {(k, *map(tuple, xs)): v for k, xs, v in c.pop("shapes")}
+        c["shapes"] = shapes
+        coll = {}
+        for b in c["collective_ms"]:
+            for k, v in b.items():
+                coll.setdefault(k, []).append(v)
+        per_rank.append(dict(
+            rank=c["rank"], backend=c["backend"], device=c["device"],
+            shards_held=c["shards_held"], table_mode=c["table_mode"],
+            load_s=c["load_s"], engine_init_s=c["engine_init_s"],
+            reads_per_s=spread(c["reads_per_s"]), batch_ms=c["batch_ms"],
+            collective_ms={k: spread(v) for k, v in coll.items()},
+            collective_ms_batch=spread([sum(b.values())
+                                        for b in c["collective_ms"]]),
+            max_memory_allocated=c["max_memory_allocated"],
+            kernel_launches=per_kernel(c["launches"]),
+            shape_launches=shape_counts(shapes)))
+    emit(phase=tag, grid=[data, db], batch_reads=cfg.query_batch,
+         timed_batches=len(batches) - 1, wall_s=wall,
+         payload_equal=equal, hits=int((wants[-1][0] > 0).sum()),
+         ranks=per_rank)
+    if not all(equal):
+        raise SystemExit(f"{tag}: rank 0's payload differs from the loop "
+                         f"engine's (batches {equal})")
+    for c in ranks:
+        for wrapper, shape in need:
+            n = (c["launches"][wrapper] if shape is None
+                 else c["shapes"].get((wrapper, shape), 0))
+            if not n:
+                raise SystemExit(f"{tag}: {wrapper} {shape or ''} never "
+                                 f"launched on rank {c['rank']}")
 
 
 def build_config2_index(n_subjects: int, cfg, n_long: int = 0):
@@ -1073,7 +1282,15 @@ def scale_phase(n_subjects: int, n_timed: int):
     emit(phase="scale_crosscheck", reads=256, equal=same, hits=hits)
     if not same:
         raise SystemExit("scale: CUDA and CPU engines disagree")
-    return (launches, shapes), index, eng.key_table, batches
+    return ((launches, shapes), index, eng.key_table, batches,
+            payloads(eng, batches[:1 + TIMED_MESH]))
+
+
+def payloads(eng, batches) -> list:
+    """The engine's (18, R, K) payload of each batch, host numpy."""
+    return [eng.fetch(eng.step_dna(torch.from_numpy(dna).to(eng.device),
+                                   torch.from_numpy(lens).to(eng.device),
+                                   pack=False)) for _, dna, lens in batches]
 
 
 def pipeline_phase(eng, index, batches, n_timed: int) -> None:
@@ -1301,7 +1518,8 @@ def tail_leg(tag: str, cfg, index, batches, shards: int):
     """One swissprot_tail leg: its CSR key tables (timed apart), the
     engine, the timed run (the launch counters set to 0 just before it),
     the 256-read CPU cross-check, one batch's (18, R, K) payload and a
-    stage breakdown. Returns ((launches, shapes), payload)."""
+    stage breakdown. Returns ((launches, shapes), payload, the payloads of
+    the grid leg's batches)."""
     from ghostm_tpu_torch import engine as E
 
     t0 = time.time()
@@ -1347,7 +1565,8 @@ def tail_leg(tag: str, cfg, index, batches, shards: int):
     if not same:
         raise SystemExit(f"{tag}: CUDA and CPU engines disagree")
     emit(phase=f"{tag}_stages", **stage_breakdown(eng, dna, lens))
-    return (launches, shapes), payload
+    return (launches, shapes), payload, payloads(eng,
+                                                 batches[:1 + TIMED_MESH])
 
 
 def tail_phase(proc, prefix: str, n_subjects: int, dev, entries: list):
@@ -1392,11 +1611,11 @@ def tail_phase(proc, prefix: str, n_subjects: int, dev, entries: list):
          expand=int(merged.expand_width), build_wait_s=wait_s,
          load_s=load_s, merge_s=merge_s, **build)
     runs = {}
-    runs["swissprot_tail"], one = tail_leg("swissprot_tail", cfg, merged,
-                                           batches, 1)
+    runs["swissprot_tail"], one, _ = tail_leg("swissprot_tail", cfg, merged,
+                                              batches, 1)
     del merged
     free_cuda()
-    runs["swissprot_tail_2shard"], two = tail_leg(
+    runs["swissprot_tail_2shard"], two, wants = tail_leg(
         "swissprot_tail_2shard", cfg, index2, batches, 2)
     rows = [*range(6), *range(9, 18)]
     same = bool((one[rows] == two[rows]).all())
@@ -1409,6 +1628,16 @@ def tail_phase(proc, prefix: str, n_subjects: int, dev, entries: list):
                          "differ from swissprot_tail's")
     del index2
     free_cuda()
+    # the same index and reads on a (1, 2) grid: a rank a shard, the
+    # payload the per-shard loop's
+    mdir = os.path.join(os.path.dirname(prefix), "mesh_tail")
+    os.makedirs(mdir)
+    Q = cfg.query_batch * 6
+    mesh_leg("mesh_tail_1x2", prefix, cfg, batches[:1 + TIMED_MESH], wants,
+             1, 2, (("sort_vote_rank_rows", None), ("sw_fused", None),
+                    ("lex_rank_rows", SELECT_SHAPE(Q)),
+                    ("lex_rank_rows", (9, cfg.query_batch, 48))), mdir)
+    del wants
     # B2's monolithic entry at the CSR key rows swissprot_tail launched:
     # rows of Lq x expand keys, no presorted run, about half BIG; keys
     # below S x nbins (its own generator)
@@ -1501,10 +1730,25 @@ def smoke(args, _build, tail: list, tail_dir: str) -> int:
     if args.subjects < N_SUBJECTS:
         emit(phase="reduced", subjects=args.subjects, of=N_SUBJECTS,
              why="command-line cut of the subject count")
-    runs["scale"], index, key_table, batches = scale_phase(
+    runs["scale"], index, key_table, batches, wants = scale_phase(
         args.subjects, TIMED_BATCHES)
     free_cuda()
     from ghostm_tpu_torch.config import Config
+    from ghostm_tpu_torch.index.diskio import save_index
+
+    # the scale index on a (2, 1) grid: each rank half of every batch
+    mdir = os.path.join(tail_dir, "mesh_scale")
+    os.makedirs(mdir)
+    t0 = time.time()
+    save_index(os.path.join(mdir, "idx"), index.shards, index.seed_len)
+    emit(phase="mesh_scale_setup", save_index_s=time.time() - t0)
+    cfg = Config(query_batch=8192, seed_len=5, hits_per_seed=128)
+    mesh_leg("mesh_scale_2x1", os.path.join(mdir, "idx"), cfg,
+             batches[:1 + TIMED_MESH], wants, 2, 1,
+             (("sort_rows", None), ("merge_vote_rank_rows", None),
+              ("sw_fused", None), ("lex_rank_rows", (9, 4096, 48))), mdir)
+    del wants
+    shutil.rmtree(mdir)
 
     cfg = Config(query_batch=8192, seed_len=5, hits_per_seed=128, **B50)
     # same Lq and band as the BLOSUM62 leg: its key table and reads

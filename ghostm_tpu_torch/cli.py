@@ -1,21 +1,34 @@
 """CLI — `python -m ghostm_tpu_torch db` / `aln`, the JAX package's flags.
 
 `db` writes the same index files as `python -m ghostm_tpu db` (either
-package reads the other's). `aln` runs on CUDA unless `--device cpu` is
-given, and fails without a GPU. `--pallas`/`--no-pallas` are accepted and
-ignored (a CUDA run always launches the kernels, a CPU run their plain
-versions), so the JAX package's command lines carry over. Every
-`--matrix`, gap cost and `--band` of the JAX package runs (a CUDA run takes
-bands up to 128 and gap costs >= 0). Long-read mode runs as in the JAX
-package: `smooth_bins` and `chain_gamma` from `--config` JSON or
+package reads the other's). `aln` runs on CUDA unless `--device cpu` (or
+`--cpu`) is given, and fails without a GPU. `--pallas`/`--no-pallas` are
+accepted and ignored (a CUDA run always launches the kernels, a CPU run
+their plain versions), so the JAX package's command lines carry over.
+Every `--matrix`, gap cost and `--band` of the JAX package runs (a CUDA
+run takes bands up to 128 and gap costs >= 0). Long-read mode runs as in
+the JAX package: `smooth_bins` and `chain_gamma` from `--config` JSON or
 `--chain-gamma`, long reads with `--max-read-len`. The debug surface runs
 as in the JAX package: `--check` (bounds and NaN asserts on each batch's
 search before its step), `--debug-nans` (a NaN check of every stage's
 floating outputs; the step computes in integers), `--profile DIR`
 (torch.profiler's trace), and the variables GHOSTM_TPU_HBM_LOG and
-GHOSTM_TPU_SYNC_PIPELINE (pipeline.py). The mesh and multi-process flags
-(`--data-axis` / `--db-axis` above 1, `--coordinator`, `--num-processes`,
-`--process-id`) and `--cpu` are not ported yet and are rejected.
+GHOSTM_TPU_SYNC_PIPELINE (pipeline.py).
+
+The distributed search (parallel/): torch has a process a rank, so
+  * `--data-axis a --db-axis b` (a * b > 1) without `--num-processes`
+    starts a * b local ranks of this command (parallel.launch.run_local),
+    the JAX package's one-process mesh: rank 0 writes the table;
+  * `--coordinator host:port --num-processes n --process-id i` joins this
+    process as rank i of n (the JAX package's multi-process run; it needs
+    --checkpoint-batches);
+  * `--cpu N` is `--device cpu` with at most N local ranks (the JAX
+    package's N CPU devices): a grid of more ranks raises its "needs N
+    devices".
+A rank's device is cuda:{local rank % cards}. A rank that fails fails the
+run. GHOSTM_TPU_LAUNCH_COUNTS=PREFIX: each `aln` process writes its kernel
+launch counts to PREFIX.r{rank}.json at its end (chip_smoke.py reads the
+counts of the ranks a grid run starts).
 """
 
 from __future__ import annotations
@@ -23,6 +36,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 import time
 
@@ -33,13 +47,6 @@ from ghostm_tpu_torch.utils.logging import setup_logging
 
 log = logging.getLogger("ghostm_tpu_torch")
 
-# flags of the JAX package's CLI this port does not support yet
-_NOT_PORTED = (
-    ("cpu", "--cpu"), ("coordinator", "--coordinator"),
-    ("num_processes", "--num-processes"), ("process_id", "--process-id"),
-)
-
-
 def _add_common(p):
     p.add_argument("-k", "--seed-len", type=int, default=None)
     p.add_argument("--config", type=str, default=None, help="JSON config file")
@@ -49,7 +56,9 @@ def _add_common(p):
                    help="check every stage's floating outputs for NaN (the "
                         "search step computes in integers)")
     p.add_argument("--cpu", type=int, nargs="?", const=8, default=None,
-                   metavar="N", help="JAX mesh testing: not ported (rejected)")
+                   metavar="N", help="run on the CPU with at most N local "
+                                     "ranks (the JAX package's N CPU "
+                                     "devices; default 8)")
 
 
 def _config_from_args(args, **overrides) -> Config:
@@ -105,9 +114,12 @@ def cmd_db(args) -> int:
 
 
 def cmd_aln(args) -> int:
-    from ghostm_tpu_torch.engine import SearchEngine
-    from ghostm_tpu_torch.index.diskio import load_index
+    import torch
+
+    from ghostm_tpu_torch.engine import SearchEngine, check_mesh
+    from ghostm_tpu_torch.index.diskio import index_shards, load_index
     from ghostm_tpu_torch.io.fasta import read_batches
+    from ghostm_tpu_torch.parallel import launch, mesh as pm
     from ghostm_tpu_torch.pipeline import run_search
 
     cfg = _config_from_args(
@@ -124,15 +136,47 @@ def cmd_aln(args) -> int:
         chain_gamma=args.chain_gamma,
         check=args.check or None,
         profile_dir=args.profile,
+        data_axis=args.data_axis,
+        db_axis=args.db_axis,
     )
+    device = "cpu" if args.cpu else args.device
+    data, db = cfg.data_axis, cfg.db_axis
+    nproc = args.num_processes
+    mesh = None
+    if nproc and nproc > 1:
+        # one rank of a run of nproc processes: the checkpoint rule is
+        # checked before joining, so a refused run waits for no peer
+        if not args.local_ranks and cfg.checkpoint_batches <= 0:
+            raise ValueError(
+                "multi-process runs need checkpoint_batches > 0 "
+                "(per-batch row-addressed result parts)"
+            )
+        pm.init_distributed(args.coordinator, nproc, args.process_id,
+                            device=device)
+        device = pm.rank_device(device, args.process_id)
+        mesh = pm.make_mesh(data, db, local_ranks=args.local_ranks)
+    elif data * db > 1:
+        # the one-run grid: check what each rank would refuse, then start
+        # the ranks
+        if args.cpu:
+            pm.check_grid(data, db, args.cpu)
+        elif device == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available: pass --device "
+                               "cpu or --cpu N")
+        check_mesh(cfg, index_shards(args.db), data, db)
+        return launch.run_local(args.argv, data * db)
+    elif nproc:
+        mesh = pm.make_mesh(data, db)      # one process: a 1x1 grid
     index = load_index(args.db)
     if cfg.seed_len != index.seed_len:
         cfg = cfg.replace(seed_len=index.seed_len)
-    engine = SearchEngine(cfg, index, device=args.device)
-    log.info("engine: %d shard(s)%s, %s seed tables of width %d",
+    engine = SearchEngine(cfg, index, device=device, mesh=mesh)
+    log.info("engine: %d shard(s)%s, %s seed tables of width %d%s",
              engine.n_shards,
              " (merged at init)" if engine.merged_colocated else "",
-             engine.table_mode, engine.table_width)
+             engine.table_mode, engine.table_width,
+             "" if mesh is None else
+             f", grid ({data}x{db}) rank {mesh.rank} on {engine.device}")
     n = run_search(
         engine,
         read_batches(args.input, cfg.query_batch, args.max_read_len),
@@ -140,6 +184,15 @@ def cmd_aln(args) -> int:
         resume=args.resume,
     )
     log.info("wrote %d hit rows -> %s", n, args.output)
+    counts = os.environ.get("GHOSTM_TPU_LAUNCH_COUNTS")
+    if counts:
+        from ghostm_tpu_torch.kernels import _build
+
+        with open(f"{counts}.r{0 if mesh is None else mesh.rank}.json",
+                  "w") as f:
+            json.dump(dict(launches=_build.LAUNCHES, shapes=[
+                [k[0], [list(x) for x in k[1:]], v]
+                for k, v in _build.SHAPES.items()]), f)
     return 0
 
 
@@ -193,23 +246,22 @@ def main(argv=None) -> int:
     pa.add_argument("--checkpoint-batches", type=int, default=None,
                     help=">0: write results in per-batch parts with a cursor")
     pa.add_argument("--data-axis", type=int, default=None,
-                    help="mesh axes: only 1 (no mesh) is ported")
+                    help="grid size along 'data' (query data-parallel)")
     pa.add_argument("--db-axis", type=int, default=None,
-                    help="mesh axes: only 1 (no mesh) is ported")
+                    help="grid size along 'db' (a rank an index shard)")
     pa.add_argument("--coordinator", type=str, default=None,
-                    help="multi-process: not ported yet (rejected)")
+                    help="host:port of rank 0 (multi-process)")
     pa.add_argument("--num-processes", type=int, default=None)
     pa.add_argument("--process-id", type=int, default=None)
+    # set on the ranks run_local starts: the one-run grid
+    pa.add_argument("--local-ranks", action="store_true",
+                    help=argparse.SUPPRESS)
     _add_common(pa)
     pa.set_defaults(fn=cmd_aln)
 
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
-    for attr, flag in _NOT_PORTED:
-        if getattr(args, attr, None):
-            ap.error(f"{flag} is not ported yet")
-    for attr, flag in (("data_axis", "--data-axis"), ("db_axis", "--db-axis")):
-        if (getattr(args, attr, None) or 1) > 1:
-            ap.error(f"{flag} > 1 (the device mesh) is not ported yet")
+    args.argv = argv
     setup_logging(json_lines=args.log_json, verbose=args.verbose)
     if args.debug_nans:
         from ghostm_tpu_torch import engine

@@ -145,6 +145,17 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def _pad_reads(qcodes: np.ndarray, n: int) -> np.ndarray:
+    """(R, 6, Lq) frames padded to n reads with inert ones (code-25
+    frames: no k-mer, no hit); every read's search is its own, so the
+    real rows are unchanged."""
+    R = qcodes.shape[0]
+    if n <= R:
+        return qcodes
+    pad = np.full((n - R,) + qcodes.shape[1:], 25, qcodes.dtype)
+    return np.concatenate([qcodes, pad])
+
+
 def lead_pad(cfg: Config) -> int:
     """Sentinel padding prepended to the buffer so window starts
     g0 >= -(qlen + band) always slice in-bounds."""
@@ -218,13 +229,14 @@ def seed_key_tables(index: StackedIndex, shard: int, nbins: int):
 
 
 def aligned_key_tables(index: StackedIndex, shard: int, nbins: int,
-                       half: int, Lq: int, width: int):
+                       half: int, Lq: int, width: int, build: bool = True):
     """Bucket-ALIGNED key table: bucket k's packed values
     (row * nbins * half + localoff + Lq) start at row astart[k] // width of
     the (R, width) table, and aux[k] = (astart[k] // width) << cbits |
     count[k] gives the row and the count in one gather. Returns (tab2d
     int32, aux int32 (nb + 2,), fits); fits=False when the int32 packing
-    would overflow (the caller falls back to the CSR tables)."""
+    would overflow (the caller falls back to the CSR tables). build=False:
+    only the check, (None, None, fits)."""
     sd = index.shards[shard].seeds
     st = index.shards[shard].store
     bs = np.asarray(sd.bucket_starts, np.int64)
@@ -244,8 +256,8 @@ def aligned_key_tables(index: StackedIndex, shard: int, nbins: int,
         and _packed_value_bound(st, mult, Lq) < (1 << 31)
         and ((r_max << cbits) | width) < (1 << 31)
     )
-    if not fits:
-        return None, None, False
+    if not fits or not build:
+        return None, None, fits
     tab = np.zeros(total + nrows_need * width, np.int32)
     if P:
         vals = _packed_valmap(st, mult, Lq)[pos]
@@ -258,12 +270,14 @@ def aligned_key_tables(index: StackedIndex, shard: int, nbins: int,
 
 
 def direct_key_tables(index: StackedIndex, shard: int, nbins: int, half: int,
-                      Lq: int, width: int, cap_bytes: int = DIRECT_TABLE_CAP):
+                      Lq: int, width: int, cap_bytes: int = DIRECT_TABLE_CAP,
+                      build: bool = True):
     """DIRECT-indexed sentinel table: row k of the (nb + 1, width) table
     holds bucket k's packed values (row * nbins * half + localoff + Lq),
     padded with DIRECT_SENT; row nb (the invalid-kmer bucket) is all
     sentinel. Returns (tab2d int32, fits); fits=False when a packed value
-    would reach DIRECT_SENT or the table would exceed cap_bytes."""
+    would reach DIRECT_SENT or the table would exceed cap_bytes.
+    build=False: only the check, (None, fits)."""
     sd = index.shards[shard].seeds
     st = index.shards[shard].store
     bs = np.asarray(sd.bucket_starts, np.int64)
@@ -278,6 +292,8 @@ def direct_key_tables(index: StackedIndex, shard: int, nbins: int, half: int,
             or _packed_value_bound(st, mult, Lq) >= DIRECT_SENT \
             or int(counts.max(initial=0)) > width:
         return None, False
+    if not build:
+        return None, True
     tab = np.full(nrows * width, DIRECT_SENT, np.int32)
     if P:
         vals = _packed_valmap(st, mult, Lq)[pos]
@@ -288,39 +304,37 @@ def direct_key_tables(index: StackedIndex, shard: int, nbins: int, half: int,
 
 
 def build_key_tables(index: StackedIndex, nbins: int, half: int, Lq: int,
-                     width: int, expand: int):
-    """Every shard's (tab_main, tab_aux) and the one layout mode they
-    share: (maps, mode, width_used), as the JAX package returns them.
-    Fastest first: "direct" (row width pow2 >= expand, >= 8; tab_aux a
-    1-element dummy) while every shard's table fits its share of
-    DIRECT_TABLE_CAP (split n_shards ways: all live on the one device) and
-    the DIRECT_SENT packing; else "aligned" at `width` (the engine's
+                     width: int, expand: int, colocated_shards: bool = True,
+                     shards=None):
+    """The (tab_main, tab_aux) of each shard in `shards` (default: all)
+    and the one layout mode every shard of the index shares: (maps, mode,
+    width_used), as the JAX package returns them. Fastest first: "direct"
+    (row width pow2 >= expand, >= 8; tab_aux a 1-element dummy) while
+    every shard's table fits its share of DIRECT_TABLE_CAP and the
+    DIRECT_SENT packing; else "aligned" at `width` (the engine's
     stepped-down row width) while every shard's packing fits int32; else
-    "csr", each shard's (rowbase, localoff) from seed_key_tables."""
+    "csr", each shard's (rowbase, localoff) from seed_key_tables.
+    colocated_shards: every shard's table lives on one device, so the cap
+    is split n_shards ways; False (a grid: a device a shard) gives each
+    shard the whole cap. The mode is decided over every shard of the
+    index, whichever are built, so that every rank of a grid takes the
+    same one."""
     n_shards = index.buffers.shape[0]
+    shards = range(n_shards) if shards is None else list(shards)
     dw = 8
     while dw < expand:
         dw *= 2
-    cap = DIRECT_TABLE_CAP // n_shards
-    maps = []
-    for i in range(n_shards):
-        tab, ok = direct_key_tables(index, i, nbins, half, Lq, dw,
-                                    cap_bytes=cap)
-        if not ok:
-            break
-        maps.append((tab, np.zeros(1, np.int32)))
-    else:
-        return maps, "direct", dw
-    maps = []
-    for i in range(n_shards):
-        tab, aux, ok = aligned_key_tables(index, i, nbins, half, Lq, width)
-        if not ok:
-            break
-        maps.append((tab, aux))
-    else:
-        return maps, "aligned", width
-    return [seed_key_tables(index, i, nbins)
-            for i in range(n_shards)], "csr", width
+    cap = DIRECT_TABLE_CAP // (n_shards if colocated_shards else 1)
+    if all(direct_key_tables(index, i, nbins, half, Lq, dw, cap_bytes=cap,
+                             build=False)[1] for i in range(n_shards)):
+        return [(direct_key_tables(index, i, nbins, half, Lq, dw,
+                                   cap_bytes=cap)[0], np.zeros(1, np.int32))
+                for i in shards], "direct", dw
+    if all(aligned_key_tables(index, i, nbins, half, Lq, width,
+                              build=False)[2] for i in range(n_shards)):
+        return [aligned_key_tables(index, i, nbins, half, Lq, width)[:2]
+                for i in shards], "aligned", width
+    return [seed_key_tables(index, i, nbins) for i in shards], "csr", width
 
 
 def padded_total(index: StackedIndex, width: int) -> int:
@@ -353,13 +367,16 @@ def diag_bins(cfg: Config, index: StackedIndex) -> int:
             // (cfg.band_width // 2) + 2)
 
 
-def key_tables_for(cfg: Config, index: StackedIndex):
+def key_tables_for(cfg: Config, index: StackedIndex,
+                   colocated_shards: bool = True, shards=None):
     """The (maps, mode, width) triple a SearchEngine on (cfg, index) builds
     (build_key_tables at its bins and aligned width); `key_table=` of a
-    second engine on the same index."""
+    second engine on the same index. A grid rank's engine takes
+    colocated_shards=False and its own shard."""
     return build_key_tables(index, diag_bins(cfg, index),
                             cfg.band_width // 2, cfg.query_frame_len,
-                            aligned_width(index), index.expand_width)
+                            aligned_width(index), index.expand_width,
+                            colocated_shards, shards)
 
 
 def _merge_fits_direct(index: StackedIndex, cfg: Config) -> bool:
@@ -651,25 +668,52 @@ def merge_rank(stacked, sel_g: torch.Tensor, R: int, K: int) -> torch.Tensor:
     ranked packed (9, R, K) int32 (the JAX package's _merge_rank_jit):
     each field summed over shards where the shard owns a live hit (the
     owners are disjoint), the owning shard's id as the shard field, then
-    rank_reads."""
+    rank_merged."""
     score, qend, bend, s_end, g0, srow, owned = stacked
-    live = owned & (score > 0)
-    zero = torch.zeros_like(score)
-    tot = lambda f: f.sum(0, dtype=torch.int32)
-    m = lambda f: tot(torch.where(live, f, zero))
     sid = torch.arange(score.shape[0], dtype=torch.int32,
                        device=score.device)[:, None, None]
-    score_m = tot(score)   # align_shard zeroes the scores a shard does not own
-    C = score.shape[2]
+    fields = live_fields(score, qend, bend, s_end, g0, srow, owned,
+                         sid.expand_as(score))
+    return rank_merged(fields.sum(1, dtype=torch.int32), sel_g, R, K)
+
+
+def live_fields(score, qend, bend, s_end, g0, srow, owned,
+                shard) -> torch.Tensor:
+    """One shard's align outputs as the 7 fields the merge sums over
+    shards, stacked on dim 0: the score (align_shard zeroes the scores a
+    shard does not own), then qend, bend, s_end, g0, srow and the shard id
+    where the shard owns a live hit, else 0."""
+    live = owned & (score > 0)
+    zero = torch.zeros_like(score)
+    return torch.stack([score] + [torch.where(live, f, zero) for f in
+                                  (qend, bend, s_end, g0, srow, shard)])
+
+
+def rank_merged(fields: torch.Tensor, sel_g: torch.Tensor, R: int,
+                K: int) -> torch.Tensor:
+    """The merged (7, Qf, C) fields (live_fields summed over shards) ->
+    ranked packed (9, R, K) int32: per read the top K of its 6 x C
+    candidates (rank_reads), each candidate's frame from its column."""
+    score, qend, bend, s_end, g0, srow, shard = fields
+    C = score.shape[1]
     M = NFRAMES * C
     rs = lambda a: a.reshape(R, M)
     frame = torch.arange(NFRAMES, dtype=torch.int32, device=score.device
                          ).repeat_interleave(C)[None, :].expand(R, M)
-    gsid = torch.where(score_m > 0, sel_g, torch.full_like(sel_g, BIG))
+    gsid = torch.where(score > 0, sel_g, torch.full_like(sel_g, BIG))
     return rank_reads(
-        rs(score_m), rs(gsid), frame.contiguous(), rs(m(qend)), rs(m(s_end)),
-        rs(m(bend)), rs(m(g0)), rs(m(srow)), rs(m(sid.expand_as(score))), K,
+        rs(score), rs(gsid), frame.contiguous(), rs(qend), rs(s_end),
+        rs(bend), rs(g0), rs(srow), rs(shard), K,
     )
+
+
+def check_mesh(cfg: Config, n_shards: int, data: int, db: int) -> None:
+    """The JAX package's two refusals of an index and batch for a
+    (data, db) grid."""
+    if n_shards != db:
+        raise ValueError(f"index has {n_shards} shards, mesh db axis is {db}")
+    if cfg.query_batch % data:
+        raise ValueError("query_batch must divide by mesh data axis")
 
 
 def refine_stats_packed(
@@ -723,11 +767,19 @@ class SearchEngine:
 
     def __init__(self, cfg: Config, index: StackedIndex,
                  device: str | torch.device = "cuda",
-                 key_table: tuple | None = None):
+                 key_table: tuple | None = None, mesh=None):
         """key_table: the (maps, mode, width) triple build_key_tables made
         for this (cfg, index) — a caller that runs two engines over one
         index passes the first engine's `key_table` to skip a second build
-        (for an index the engine merges, the merged index's tables)."""
+        (for an index the engine merges, the merged index's tables).
+
+        mesh: a parallel.mesh.Mesh — this engine is one rank of a
+        (data, db) grid (the JAX package's mesh branch): it needs an index
+        of `db` shards and a query_batch that divides by `data`, holds only
+        shard `mesh.db_index` on its device (its key table from the whole
+        direct-table cap, the layout mode decided over every shard), never
+        merges shards, and searches through search_batch_stats /
+        search_batch_stats_local (parallel.search)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device available: pass "
@@ -745,14 +797,18 @@ class SearchEngine:
                 f"gap costs {cfg.gap_open}/{cfg.gap_extend}: the CUDA SW "
                 "kernels take gap costs >= 0"
             )
+        self.mesh = mesh
+        if mesh is not None:
+            check_mesh(cfg, index.buffers.shape[0], mesh.data, mesh.db)
         # Colocated-shard merge: every shard runs on the one device, so n
         # shards cost ~n x the propose and align work of one. While the
         # merged index still takes the direct table, fold the shards into
         # one at init (the same output by the shard-invariance contract);
         # otherwise (the reason to shard a one-device index) keep the loop.
-        # GHOSTM_TPU_MERGE_COLOCATED=0 keeps the loop for coverage.
+        # GHOSTM_TPU_MERGE_COLOCATED=0 keeps the loop for coverage. A grid
+        # rank holds one shard: nothing to merge.
         self.merged_colocated = False
-        if (index.buffers.shape[0] > 1
+        if (mesh is None and index.buffers.shape[0] > 1
                 and os.environ.get("GHOSTM_TPU_MERGE_COLOCATED", "1") != "0"
                 and _merge_fits_direct(index, cfg)):
             index = merge_shards(index)
@@ -776,6 +832,8 @@ class SearchEngine:
         self.cfg = cfg
         self.index = index
         self.n_shards = index.buffers.shape[0]
+        # the index shards this engine holds on its device
+        own = (range(self.n_shards) if mesh is None else [mesh.db_index])
         check_codes(index.buffers, "the index buffer")
         self.lead = lead_pad(cfg)
         self.matrix_np = mat
@@ -783,11 +841,13 @@ class SearchEngine:
         self.nbins = diag_bins(cfg, index)
         cand_mod.check_vote_keys(index.subject_ids.shape[1], self.nbins)
         if key_table is None:
-            key_table = key_tables_for(cfg, index)
+            key_table = key_tables_for(cfg, index,
+                                       colocated_shards=mesh is None,
+                                       shards=own)
         maps, self.table_mode, self.table_width = key_table
-        if len(maps) != self.n_shards:
-            raise ValueError(f"key_table has {len(maps)} shards, the index "
-                             f"{self.n_shards}")
+        if len(maps) != len(own):
+            raise ValueError(f"key_table has {len(maps)} shards, the engine "
+                             f"holds {len(own)}")
         self.key_table = key_table
         # the presorted-run stage skip needs runs that tile power-of-two
         # blocks of the key row: direct rows always (run = row width),
@@ -811,7 +871,7 @@ class SearchEngine:
         )
         self.sw_table_max = int(self.sw_table.max())
         self.shard_dev: List[dict] = []
-        for i, (tab_main, tab_aux) in enumerate(maps):
+        for i, (tab_main, tab_aux) in zip(own, maps):
             st = index.shards[i].store
             n = st.num_subjects
             ident = n > 0 and bool(
@@ -829,40 +889,52 @@ class SearchEngine:
             ))
 
     # ------------------------------------------------------------------
+    def propose_one(self, qflat: torch.Tensor, d: dict,
+                    check: bool = False):
+        """propose_shard on the shard `d` (a shard_dev entry) with this
+        engine's statics: its (gsid, lbin, votes), each (R*6, ncand)."""
+        cfg = self.cfg
+        return propose_shard(
+            qflat, d["bucket_starts"], d["tab_main"], d["tab_aux"],
+            d["subject_ids"], seed_len=cfg.seed_len, expand=self.expand,
+            band=cfg.band_width, ncand=cfg.candidates_per_frame,
+            min_votes=cfg.min_votes, nbins=self.nbins,
+            table_width=self.table_width, mode=self.table_mode,
+            presorted_run=self.presorted_run, smooth=cfg.smooth_bins,
+            chain_gamma=cfg.chain_gamma, check=check,
+        )
+
     def propose(self, qflat: torch.Tensor, check: bool = False):
         """(R*6, Lq) frames -> selected (gsid, lbin), each (R*6, ncand):
         every shard's proposals side by side, then the global top-ncand.
         check: propose_shard's bounds asserts and the NaN checks."""
-        cfg = self.cfg
-        C = cfg.candidates_per_frame
-        props = [propose_shard(
-            qflat, d["bucket_starts"], d["tab_main"], d["tab_aux"],
-            d["subject_ids"], seed_len=cfg.seed_len, expand=self.expand,
-            band=cfg.band_width, ncand=C, min_votes=cfg.min_votes,
-            nbins=self.nbins, table_width=self.table_width,
-            mode=self.table_mode, presorted_run=self.presorted_run,
-            smooth=cfg.smooth_bins, chain_gamma=cfg.chain_gamma,
-            check=check,
-        ) for d in self.shard_dev]
+        props = [self.propose_one(qflat, d, check) for d in self.shard_dev]
         pg, pb, pv = (torch.cat(x, dim=1) for x in zip(*props))
         _check_nans("propose", pg, pb, pv, check=check)
-        sel_g, sel_b, _ = cand_mod.select_global(pg, pb, pv, C)
+        sel_g, sel_b, _ = cand_mod.select_global(
+            pg, pb, pv, self.cfg.candidates_per_frame)
         _check_nans("select", sel_g, sel_b, check=check)
         return sel_g, sel_b
 
-    def align(self, qflat: torch.Tensor, sel_g: torch.Tensor,
-              sel_b: torch.Tensor):
-        """Each shard's align_shard over the selected candidates, every
-        field stacked (n_shards, Qf, C)."""
+    def align_one(self, qflat: torch.Tensor, d: dict, sel_g: torch.Tensor,
+                  sel_b: torch.Tensor):
+        """align_shard on the shard `d` with this engine's statics."""
         cfg = self.cfg
-        outs = [align_shard(
+        return align_shard(
             qflat, d["buffer"], d["starts"], d["subject_ids"], d["lengths"],
             self.matrix, sel_g, sel_b, band=cfg.band_width,
             gap_open=cfg.gap_open, gap_extend=cfg.gap_extend, lead=self.lead,
             code_limit=self.code_limit, srow_identity=d["srow_identity"],
             route=self.route, chunk=self.chunk, table=self.sw_table,
             table_max=self.sw_table_max,
-        ) for d in self.shard_dev]
+        )
+
+    def align(self, qflat: torch.Tensor, sel_g: torch.Tensor,
+              sel_b: torch.Tensor):
+        """Each shard's align_shard over the selected candidates, every
+        field stacked (n_shards, Qf, C)."""
+        outs = [self.align_one(qflat, d, sel_g, sel_b)
+                for d in self.shard_dev]
         return tuple(torch.stack(x) for x in zip(*outs))
 
     def search_packed(self, qcodes3: torch.Tensor,
@@ -897,28 +969,41 @@ class SearchEngine:
         out = self.fetch(self.search_packed(q3, check=True))
         return BatchHits(*(out[i] for i in range(9)))
 
+    def windows_of(self, d: dict, g0: torch.Tensor, srow: torch.Tensor,
+                   wlen: int):
+        """Each hit's window (int8), span start and end in the shard `d`
+        (a shard_dev entry), whichever shard owns the hit."""
+        sr = srow.clamp(0, d["starts"].shape[0] - 1).to(torch.int64)
+        lo = d["starts"][sr]
+        return (fetch_windows(d["buffer"], g0, self.lead, wlen), lo,
+                lo + d["lengths"][sr])
+
     def refine_packed(self, qcodes3: torch.Tensor,
                       packed: torch.Tensor) -> torch.Tensor:
         """Window fetch + moves DP + traceback for the ranked hits ->
         (9, R, K) stats, on the device. Each hit's window, span start and
-        end come from the shard in its shard field."""
+        end come from the shard in its shard field: on a grid rank, the
+        rank fetches those of the hits its shard owns and one all_reduce
+        over "db" assembles them (parallel.search.gather_windows)."""
         cfg = self.cfg
         g0 = packed[6].reshape(-1)
         srow = packed[7].reshape(-1)
         shard = packed[8].reshape(-1)
         wlen = cfg.query_frame_len + cfg.band_width
-        for si, d in enumerate(self.shard_dev):
-            sr = srow.clamp(0, d["starts"].shape[0] - 1).to(torch.int64)
-            w2 = fetch_windows(d["buffer"], g0, self.lead, wlen)
-            lo2 = d["starts"][sr]
-            hi2 = lo2 + d["lengths"][sr]
-            if si == 0:
-                w, lo, hi = w2, lo2, hi2
-            else:
-                m = shard == si
-                w = torch.where(m[:, None], w2, w)
-                lo = torch.where(m, lo2, lo)
-                hi = torch.where(m, hi2, hi)
+        if self.mesh is not None:
+            from ghostm_tpu_torch.parallel.search import gather_windows
+
+            w, lo, hi = gather_windows(self, g0, srow, shard, wlen)
+        else:
+            for si, d in enumerate(self.shard_dev):
+                w2, lo2, hi2 = self.windows_of(d, g0, srow, wlen)
+                if si == 0:
+                    w, lo, hi = w2, lo2, hi2
+                else:
+                    m = shard == si
+                    w = torch.where(m[:, None], w2, w)
+                    lo = torch.where(m, lo2, lo)
+                    hi = torch.where(m, hi2, hi)
         return refine_stats_packed(
             qcodes3, packed, self.matrix, w.to(torch.int32), lo, hi,
             band=cfg.band_width, gap_open=cfg.gap_open,
@@ -946,7 +1031,10 @@ class SearchEngine:
         pipeline overlaps this batch's device work with the previous
         batch's fetch and TSV write). A tail batch smaller than
         cfg.query_batch is padded with length-0 reads (all-PAD frames,
-        inert) and the pad rows sliced off, as in the JAX package."""
+        inert) and the pad rows sliced off, as in the JAX package. One
+        device's engine only (a grid searches through
+        search_batch_stats)."""
+        self._no_mesh("search_refine_async_dna")
         R = dna.shape[0]
         Rb = self.cfg.query_batch
         if R < Rb:
@@ -958,6 +1046,98 @@ class SearchEngine:
             torch.from_numpy(np.ascontiguousarray(dna)).to(self.device),
             torch.from_numpy(np.asarray(lens, np.int32)).to(self.device),
         )
+        return out[:, :R] if R < Rb else out
+
+    # ------------------------------------------------------------------
+    # The codes entry: (R, 6, Lq) int8 translated frames from the host
+    # (SearchEngine.translate), as the JAX package's engine takes them.
+
+    def _no_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise ValueError(f"{what} runs on one device's engine; a grid "
+                             "rank searches through search_batch_stats")
+
+    def _codes(self, qcodes: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(qcodes)).to(self.device)
+
+    def search_batch(self, qcodes: np.ndarray) -> BatchHits:
+        """The ranked top-k hits of (R, 6, Lq) frames (host numpy). On a
+        grid rank: search_batch_stats(qcodes)[0], the whole batch."""
+        if self.mesh is not None:
+            return self.search_batch_stats(qcodes)[0]
+        out = self.fetch(self.search_packed(self._codes(qcodes)))
+        return BatchHits(*(out[i] for i in range(9)))
+
+    def _grid_block(self, qcodes: np.ndarray):
+        """This rank's row block of the batch through the grid step:
+        ((18, Rl, K) on the device, its first row, R). R is padded to a
+        multiple of the data axis with inert reads (code-25 frames) first,
+        so a tail batch runs (fault F6 of the JAX package's mesh, which
+        cannot reshape a block whose read count does not divide)."""
+        from ghostm_tpu_torch.parallel.search import distributed_step
+
+        if self.mesh is None:
+            raise ValueError("search_batch_stats needs a grid engine "
+                             "(mesh=); one device's engine runs "
+                             "search_refine_async")
+        R = qcodes.shape[0]
+        n = self.mesh.data
+        Rp = _round_up(max(R, 1), n)
+        qcodes = _pad_reads(qcodes, Rp)
+        Rl = Rp // n
+        st0 = self.mesh.data_index * Rl
+        out = distributed_step(self, self._codes(qcodes[st0:st0 + Rl]))
+        return out, st0, R
+
+    def search_batch_stats(self, qcodes: np.ndarray):
+        """A grid rank's step on (R, 6, Lq) frames: the ranked hits AND
+        their refine stats for the WHOLE batch on every rank (the row
+        blocks gathered over "data"; no process holds JAX's global array).
+        Returns (BatchHits, stats dict with score_check), host numpy."""
+        out, _, R = self._grid_block(qcodes)
+        full = self.mesh.all_gather(out, "data", "rows")  # (data, 18, Rl, K)
+        full = full.permute(1, 0, 2, 3).reshape(out.shape[0], -1,
+                                                out.shape[2])
+        return self.unpack_results(self.fetch(full[:, :R]))
+
+    def search_batch_stats_local(self, qcodes: np.ndarray):
+        """The multi-process form: every rank runs the step, and db rank 0
+        of each data row returns its row block, [(row_start, BatchHits,
+        stats)] (the JAX package's replica 0); the other ranks return [].
+        Each global row comes back from exactly one process."""
+        out, st0, R = self._grid_block(qcodes)
+        n = min(out.shape[1], R - st0)
+        if self.mesh.db_index != 0 or n <= 0:
+            return []
+        return [(st0, *self.unpack_results(self.fetch(out[:, :n])))]
+
+    def refine(self, qcodes: np.ndarray,
+               hits: BatchHits) -> Dict[str, np.ndarray]:
+        """Alignment stats of the reported hits (all (R, K), host numpy):
+        qstart/qend (frame-local aa, inclusive), sstart/send
+        (window-local), length, matches, mismatch, gapopen, -1 coordinates
+        on score-0 hits, and score_check (the moves DP's score). The hits
+        go to the device and through refine_packed; on a grid every rank
+        of a data row calls it with the same hits."""
+        packed = np.stack([getattr(hits, f) for f in
+                           BatchHits.__dataclass_fields__]).astype(np.int32)
+        out = self.fetch(self.refine_packed(self._codes(qcodes),
+                                            self._codes(packed)))
+        stats = {k: out[j] for j, k in enumerate(self.STAT_KEYS)}
+        stats["score_check"] = out[8]
+        return stats
+
+    def search_refine_async(self, qcodes: np.ndarray) -> torch.Tensor:
+        """search + refine of (R, 6, Lq) frames without fetching: the
+        (18, R, K) payload on the device. A batch shorter than
+        cfg.query_batch is padded with inert reads (code-25 frames) and
+        the pad rows sliced off, as in the JAX package."""
+        self._no_mesh("search_refine_async")
+        R = qcodes.shape[0]
+        Rb = self.cfg.query_batch
+        q3 = self._codes(_pad_reads(qcodes, Rb))
+        packed = self.search_packed(q3)
+        out = torch.cat([packed, self.refine_packed(q3, packed)])
         return out[:, :R] if R < Rb else out
 
     @staticmethod

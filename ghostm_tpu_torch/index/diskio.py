@@ -84,6 +84,12 @@ def save_index(prefix: str, shards: List[IndexShard], seed_len: int) -> None:
         )
 
 
+def index_shards(prefix: str) -> int:
+    """The shard count of the index at `prefix` (its manifest alone)."""
+    with open(f"{prefix}.manifest.json") as f:
+        return int(json.load(f)["n_shards"])
+
+
 def load_index(prefix: str) -> StackedIndex:
     with open(f"{prefix}.manifest.json") as f:
         manifest = json.load(f)

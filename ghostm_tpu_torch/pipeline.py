@@ -1,5 +1,5 @@
 """Batch streaming loop with checkpoint/resume (port of the JAX package's
-pipeline.py, one process, no mesh).
+pipeline.py).
 
 The only mutable state of a search run is (input cursor, emitted rows) — the
 index is immutable — so fault tolerance is per-batch result parts plus a
@@ -8,11 +8,12 @@ cursor manifest: results are written to `<out>.parts/part-{i}.tsv` with
 completed parts and re-runs the first incomplete one. Without checkpointing,
 rows stream straight into the output file.
 
-Batch i+1's device step is launched before batch i's result is fetched and
-written: the fetch + TSV format + write of a batch run on one background
-thread (a single worker keeps part files and cursor updates in order), so
-host work overlaps the next batch's device work. The rows are formatted in
-C (report.SubjectNames, native.m8_format) where the host library is built.
+On one device, batch i+1's step is launched before batch i's result is
+fetched and written: the fetch + TSV format + write of a batch run on one
+background thread (a single worker keeps part files and cursor updates in
+order), so host work overlaps the next batch's device work. The rows are
+formatted in C (report.SubjectNames, native.m8_format) where the host
+library is built.
 
 Debug and observability hooks, as in the JAX package:
   * GHOSTM_TPU_SYNC_PIPELINE=1: batch i is flushed before batch i+1 is
@@ -26,7 +27,23 @@ Debug and observability hooks, as in the JAX package:
     flush; at exit FILE holds the maxima as JSON (bytes_in_use,
     peak_bytes_in_use, largest_alloc_size, bytes_limit). A CPU engine has
     no allocator statistics: no file is written, and the run logs why.
-The mesh and multi-process runs are not ported yet.
+
+A grid engine (SearchEngine(mesh=...), parallel/) searches each batch
+through its collectives, synchronously (the host-translated frames in, the
+host results out; the flush thread still writes). Two forms, as in the JAX
+package:
+  * the one-run grid (ranks the CLI started itself, Mesh.local_ranks):
+    every rank gets the whole batch (search_batch_stats) and rank 0 alone
+    writes the table, parts and cursor;
+  * multi-process (joined with --num-processes): checkpointing is
+    required; each process writes the row blocks it holds
+    (search_batch_stats_local) as row-addressed parts
+    `part-{bi:06d}-r{row:08d}.tsv` with its own `cursor-p{rank}.json`;
+    --resume starts every process from the minimum cursor (a missing one
+    counts 0); after a barrier rank 0 concatenates the parts, whose names
+    sort into global row order.
+Every rank of a grid ends at a barrier, so no rank exits 0 while a peer
+died.
 """
 
 from __future__ import annotations
@@ -40,6 +57,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, Optional
 
 import torch
+import torch.distributed as dist
 
 from ghostm_tpu_torch import native
 from ghostm_tpu_torch.report import M8_HEADER, SubjectNames, write_hits
@@ -96,13 +114,25 @@ def _profiled(engine, profile_dir: Optional[str]):
     log.info("profile trace -> %s", path)
 
 
+def _read_cursor(path: str) -> int:
+    """Completed batches in a cursor file; 0 when it is missing or torn (a
+    process killed while writing it)."""
+    try:
+        with open(path) as f:
+            return int(json.load(f)["completed_batches"])
+    except (FileNotFoundError, ValueError, KeyError):
+        return 0
+
+
 def run_search(engine, batches: Iterable, output: str,
                resume: bool = False,
                metrics: Optional[MetricsLog] = None) -> int:
     """Search every batch and write the m8 table to `output`; returns the
-    rows written. metrics: a MetricsLog to fill (the one-time set-up and
-    each batch's wall and host split), for a caller that reads them."""
+    rows written (by this process). metrics: a MetricsLog to fill (the
+    one-time set-up and each batch's wall and host split), for a caller
+    that reads them."""
     cfg = engine.cfg
+    mesh = getattr(engine, "mesh", None)
     metrics = metrics if metrics is not None else MetricsLog()
     t_setup = time.perf_counter()
     snames = _subject_names(engine.index)
@@ -113,12 +143,34 @@ def run_search(engine, batches: Iterable, output: str,
     checkpointing = cfg.checkpoint_batches > 0
     parts_dir = output + ".parts"
     cursor_path = os.path.join(parts_dir, "cursor.json")
+    joined = dist.is_available() and dist.is_initialized()
+    rank = dist.get_rank() if joined else 0
+    world = dist.get_world_size() if joined else 1
+    multiproc = world > 1 and not (mesh is not None and mesh.local_ranks)
+    writer = multiproc or rank == 0
+    if multiproc and not checkpointing:
+        raise ValueError(
+            "multi-process runs need checkpoint_batches > 0 "
+            "(per-batch row-addressed result parts)"
+        )
     done = 0
     if checkpointing:
         os.makedirs(parts_dir, exist_ok=True)
-        if resume and os.path.exists(cursor_path):
-            with open(cursor_path) as f:
-                done = json.load(f)["completed_batches"]
+        if multiproc:
+            cursor_path = os.path.join(parts_dir, f"cursor-p{rank}.json")
+        if resume and multiproc:
+            # every process resumes from the same batch (each batch is a
+            # sequence of collectives), the minimum of the process cursors:
+            # a kill can land between one process's cursor write and its
+            # peer's; re-writing a completed part writes the same bytes
+            dones = [_read_cursor(os.path.join(parts_dir,
+                                               f"cursor-p{pi}.json"))
+                     for pi in range(world)]
+            done = min(dones)
+            log.info("resuming after %d completed batches (process "
+                     "cursors: %s)", done, dones)
+        elif resume and os.path.exists(cursor_path):
+            done = _read_cursor(cursor_path)
             log.info("resuming after %d completed batches", done)
     # GHOSTM_TPU_HBM_LOG: the maxima of device_memory over the batches
     hbm_log = os.environ.get("GHOSTM_TPU_HBM_LOG")
@@ -130,27 +182,41 @@ def run_search(engine, batches: Iterable, output: str,
     total_rows = 0
     out_f = None
 
+    def _write_part(part, names, lens, hits, stats, split):
+        with open(part + ".tmp", "w") as f:
+            rows = write_hits(
+                f, cfg, names, lens, snames, hits, stats,
+                engine.index.total_residues, db_seqs, timing=split,
+            )
+        os.replace(part + ".tmp", part)
+        return rows
+
     def _flush(p):
         nonlocal total_rows
         bi, names, lens, R, payload, t0 = p
         t1 = time.perf_counter()
-        hits, stats = engine.unpack_results(engine.fetch(payload))
+        # [(first row, hits, stats)]: the loop's one block, a grid's
+        # blocks this process writes (none on a one-run grid's rank > 0)
+        blocks = (payload if mesh is not None else
+                  [(0, *engine.unpack_results(engine.fetch(payload)))])
         split = dict(fetch_s=time.perf_counter() - t1)
-        if checkpointing:
-            part = os.path.join(parts_dir, f"part-{bi:06d}.tsv")
-            with open(part + ".tmp", "w") as f:
-                rows = write_hits(
-                    f, cfg, names, lens, snames, hits, stats,
+        rows = 0
+        for st0, hits, stats in blocks:
+            n = hits.score.shape[0]
+            nm, ln = names[st0:st0 + n], lens[st0:st0 + n]
+            if checkpointing:
+                part = (f"part-{bi:06d}-r{st0:08d}.tsv" if multiproc
+                        else f"part-{bi:06d}.tsv")
+                rows += _write_part(os.path.join(parts_dir, part), nm, ln,
+                                    hits, stats, split)
+            else:
+                rows += write_hits(
+                    out_f, cfg, nm, ln, snames, hits, stats,
                     engine.index.total_residues, db_seqs, timing=split,
                 )
-            os.replace(part + ".tmp", part)
+        if checkpointing and writer:
             with open(cursor_path, "w") as f:
                 json.dump({"completed_batches": bi + 1}, f)
-        else:
-            rows = write_hits(
-                out_f, cfg, names, lens, snames, hits, stats,
-                engine.index.total_residues, db_seqs, timing=split,
-            )
         if hbm_peak is not None:
             for k, v in device_memory(engine.device).items():
                 hbm_peak[k] = max(hbm_peak.get(k, 0), int(v))
@@ -167,23 +233,34 @@ def run_search(engine, batches: Iterable, output: str,
         )
         total_rows += rows
 
-    pending = None  # (bi, names, lens, R, device payload, t0)
+    def _launch(dna, lens):
+        """One batch's step: the loop's device payload, or a grid's
+        host row blocks ([(first row, hits, stats)])."""
+        if mesh is None:
+            if cfg.check:
+                # bounds and NaN asserts (raise on a violation), then
+                # the step
+                engine.search_batch_checked(engine.translate(dna, lens))
+            return engine.search_refine_async_dna(dna, lens)
+        qcodes = engine.translate(dna, lens)
+        if multiproc:
+            return engine.search_batch_stats_local(qcodes)
+        hits, stats = engine.search_batch_stats(qcodes)
+        return [(0, hits, stats)] if writer else []
+
+    pending = None  # (bi, names, lens, R, payload, t0)
     flusher = None if sync else ThreadPoolExecutor(1)
     fut = None
     try:
         with _profiled(engine, cfg.profile_dir):
-            if not checkpointing:
+            if writer and not checkpointing:
                 out_f = open(output, "w")
                 out_f.write(M8_HEADER + "\n")
             for bi, (names, dna, lens) in enumerate(batches):
                 if checkpointing and bi < done:
                     continue
                 t0 = time.time()
-                if cfg.check:
-                    # bounds and NaN asserts (raise on a violation), then
-                    # the step
-                    engine.search_batch_checked(engine.translate(dna, lens))
-                payload = engine.search_refine_async_dna(dna, lens)
+                payload = _launch(dna, lens)
                 if pending is not None:
                     if fut is not None:
                         fut.result()   # propagate errors, bound the queue
@@ -198,7 +275,10 @@ def run_search(engine, batches: Iterable, output: str,
             if pending is not None:
                 _flush(pending)
                 pending = None
-        if checkpointing:
+        if world > 1:
+            dist.barrier()   # a rank whose peer died fails here
+        if checkpointing and rank == 0:
+            # row-addressed part names sort into global row order
             with open(output, "w") as f:
                 f.write(M8_HEADER + "\n")
                 for p in sorted(os.listdir(parts_dir)):

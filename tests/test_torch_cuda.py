@@ -665,3 +665,97 @@ def test_hbm_log_keys_cuda(dev, tmp_path, monkeypatch):
     assert 0 < got["bytes_in_use"] <= got["peak_bytes_in_use"] \
         <= got["bytes_limit"]
     assert 0 < got["largest_alloc_size"] <= got["peak_bytes_in_use"]
+
+
+# One rank of a grid on the card: argv = coordinator, rank, data, db,
+# index prefix, reads, directory; saves its whole-batch (18, R, K) payload.
+GRID_RANK = r"""
+import sys
+import numpy as np
+from ghostm_tpu_torch.config import Config
+from ghostm_tpu_torch.engine import SearchEngine
+from ghostm_tpu_torch.index.diskio import load_index
+from ghostm_tpu_torch.parallel import mesh as pm
+
+coord, rank, data, db, prefix, n, d = sys.argv[1:8]
+rank, data, db, n = int(rank), int(data), int(db), int(n)
+pm.init_distributed(coord, data * db, rank, device="cuda")
+mesh = pm.make_mesh(data, db)
+eng = SearchEngine(Config(query_batch=128), load_index(prefix),
+                   device=pm.rank_device("cuda", rank), mesh=mesh)
+assert eng.device.type == "cuda"
+qc = np.load(f"{d}/qcodes.npy")[:n]
+hits, stats = eng.search_batch_stats(qc)
+np.save(f"{d}/grid-r{rank}.npy", np.stack(
+    [getattr(hits, f) for f in hits.__dataclass_fields__]
+    + [stats[k] for k in eng.STAT_KEYS] + [stats["score_check"]]))
+print(mesh.backend, flush=True)
+"""
+
+
+@pytest.mark.parametrize("data,db,reads", [
+    (2, 1, 128), (1, 2, 128), (2, 1, 5),
+])
+def test_grid_cuda_equals_loop(dev, tmp_path, monkeypatch, data, db, reads):
+    """A grid of ranks on the card (two ranks share one card over gloo;
+    NCCL where each has its own): the whole batch on every rank equals
+    the CUDA loop engine's (18, R, K) payload over the same index (the
+    per-shard loop at 2 shards), 5 reads included (a tail batch the data
+    axis does not divide)."""
+    import subprocess
+    import sys
+
+    from ghostm_tpu_torch import engine as E
+    from ghostm_tpu_torch.parallel import launch
+
+    g, _, dna, lens = _golden_engines(tmp_path)
+    prefix = str(tmp_path / "idx")
+    if db == 2:
+        from ghostm_tpu_torch.cli import main as cli
+        from ghostm_tpu_torch.index.diskio import load_index
+
+        gold = os.path.join(os.path.dirname(__file__), "golden")
+        prefix = str(tmp_path / "idx2")
+        assert cli(["db", "-i", os.path.join(gold, "config1_db.fa"), "-o",
+                    prefix, "--shards", "2"]) == 0
+        monkeypatch.setenv("GHOSTM_TPU_MERGE_COLOCATED", "0")
+        g = E.SearchEngine(g.cfg, load_index(prefix), device="cuda")
+        assert g.n_shards == 2
+    qc = g.translate(dna, lens)
+    np.save(tmp_path / "qcodes.npy", qc)
+    want = g.fetch(g.search_refine_async(qc[:reads]))
+    assert want[0].max() > 0
+    procs = launch.start_ranks(
+        lambda r, coord: [sys.executable, "-c", GRID_RANK, coord, str(r),
+                          str(data), str(db), prefix, str(reads),
+                          str(tmp_path)], data * db,
+        stdout=subprocess.PIPE)
+    assert launch.wait_ranks(procs, timeout=300) == 0
+    for r in range(data * db):
+        np.testing.assert_array_equal(np.load(tmp_path / f"grid-r{r}.npy"),
+                                      want)
+
+
+def test_grid_cli_golden_cuda(dev, tmp_path, monkeypatch):
+    """`aln --device cuda --data-axis 1 --db-axis 2` over `db --shards 2`:
+    two local ranks on the card write the config-1 golden, and each
+    launched B2, B3 and B4 (GHOSTM_TPU_LAUNCH_COUNTS)."""
+    from ghostm_tpu_torch.cli import main as cli
+
+    gold = os.path.join(os.path.dirname(__file__), "golden")
+    prefix = str(tmp_path / "idx2")
+    assert cli(["db", "-i", os.path.join(gold, "config1_db.fa"), "-o",
+                prefix, "--shards", "2"]) == 0
+    counts = str(tmp_path / "launches")
+    monkeypatch.setenv("GHOSTM_TPU_LAUNCH_COUNTS", counts)
+    out = str(tmp_path / "hits.tsv")
+    assert cli(["aln", "-d", prefix, "-i", os.path.join(
+        gold, "config1_reads.fa"), "-o", out, "--batch", "128",
+        "--data-axis", "1", "--db-axis", "2"]) == 0
+    with open(out) as f, open(os.path.join(gold, "config1_hits.tsv")) as h:
+        assert f.read() == h.read()
+    for r in range(2):
+        with open(f"{counts}.r{r}.json") as f:
+            got = json.load(f)["launches"]
+        for k in ("sort_vote_rank_rows", "sw_fused", "lex_rank_rows"):
+            assert got[k] > 0, (r, k)

@@ -1,13 +1,13 @@
 """Fault injection and the --check debug mode of the port, against the JAX
 package (the port of tests/test_faultinject.py).
 
-Fault injection: `python -m ghostm_tpu_torch aln --device cpu` with
-per-batch checkpointing over a 2-shard index (the per-shard loop:
-GHOSTM_TPU_MERGE_COLOCATED=0; the JAX test's `--cpu 2 --db-axis 2` mesh is
-not ported yet) runs as a subprocess, is SIGKILLed mid-run (after at least
+Fault injection: `python -m ghostm_tpu_torch aln` with per-batch
+checkpointing over a 2-shard index runs as a subprocess in a session of
+its own, is SIGKILLed mid-run with its whole process group (after at least
 one part file lands, before the last), restarts with --resume, and must
-write the bytes of an uninterrupted port run and of the JAX package's run
-on the same data.
+write the bytes of the JAX package's run on the same data: on the CPU
+with the per-shard loop (GHOSTM_TPU_MERGE_COLOCATED=0), and as the JAX
+test runs it, `--cpu 2 --db-axis 2` (two local ranks, a shard each).
 
 --check: clean data passes and writes the table of a run without it (the
 config-1 golden). Corrupted seed tables go to the JAX package's
@@ -47,41 +47,47 @@ REPO = os.path.dirname(HERE)
 GOLD = os.path.join(HERE, "golden")
 
 
-def test_kill_worker_mid_run_then_resume(tmp_path, monkeypatch):
+@pytest.fixture(scope="module")
+def fi(tmp_path_factory):
+    """The JAX test's data (40 proteins, 192 reads of 100 bp), 16-read
+    batches with per-batch parts, its 2-shard index (`db` of the port) and
+    the JAX package's table of it (the per-shard loop)."""
+    d = tmp_path_factory.mktemp("fi")
     db_fa, reads_fa = make_dataset(
-        str(tmp_path / "fi"), n_proteins=40, n_reads=192, read_len=100,
+        str(d / "fi"), n_proteins=40, n_reads=192, read_len=100,
         seed=3,
     )
-    cfgf = str(tmp_path / "cfg.json")
+    cfgf = str(d / "cfg.json")
     with open(cfgf, "w") as f:
         json.dump({"query_batch": 16, "checkpoint_batches": 1,
                    "max_hits": 5}, f)
-    prefix = str(tmp_path / "idx")
+    prefix = str(d / "idx")
     assert tcli(["db", "-i", db_fa, "-o", prefix, "--shards", "2",
                  "--config", cfgf]) == 0
-    monkeypatch.setenv("GHOSTM_TPU_MERGE_COLOCATED", "0")
     args = ["aln", "-d", prefix, "-i", reads_fa, "--config", cfgf]
-    # uninterrupted runs: the port's and the JAX package's
-    ref_out = str(tmp_path / "ref.tsv")
-    assert tcli(args + ["--device", "cpu", "-o", ref_out]) == 0
-    jax_out = str(tmp_path / "jax.tsv")
-    assert jcli(args + ["--no-pallas", "-o", jax_out]) == 0
-    with open(ref_out) as f, open(jax_out) as g:
+    jax_out = str(d / "jax.tsv")
+    os.environ["GHOSTM_TPU_MERGE_COLOCATED"] = "0"
+    try:
+        assert jcli(args + ["--no-pallas", "-o", jax_out]) == 0
+    finally:
+        del os.environ["GHOSTM_TPU_MERGE_COLOCATED"]
+    with open(jax_out) as f:
         want = f.read()
-        assert want == g.read()
-    n_parts_total = len([p for p in os.listdir(ref_out + ".parts")
-                         if p.startswith("part-")])
-    assert n_parts_total == 12
+    n_parts = len([p for p in os.listdir(jax_out + ".parts")
+                   if p.startswith("part-")])
+    assert n_parts == 12
+    return args, want
 
-    # victim run: SIGKILL once >= 1 part exists and < all parts exist
-    out = str(tmp_path / "hits.tsv")
+
+def _kill_mid_run_then_resume(cmd, out, n_parts_total, env):
+    """Start `cmd` in a session of its own, SIGKILL its whole process
+    group once >= 1 part file exists and < all do, then rerun it with
+    --resume; returns the resumed run's stderr."""
     parts = out + ".parts"
-    cmd = [sys.executable, "-m", "ghostm_tpu_torch"] + args + [
-        "--device", "cpu", "-o", out]
-    env = dict(os.environ, OMP_NUM_THREADS="1")
     proc = subprocess.Popen(cmd, cwd=REPO, env=env,
                             stdout=subprocess.DEVNULL,
-                            stderr=subprocess.DEVNULL)
+                            stderr=subprocess.DEVNULL,
+                            start_new_session=True)
     killed = False
     deadline = time.time() + 60
     try:
@@ -90,23 +96,57 @@ def test_kill_worker_mid_run_then_resume(tmp_path, monkeypatch):
                 done = [p for p in os.listdir(parts)
                         if p.startswith("part-") and p.endswith(".tsv")]
                 if 1 <= len(done) < n_parts_total:
-                    os.kill(proc.pid, signal.SIGKILL)
+                    os.killpg(proc.pid, signal.SIGKILL)
                     killed = True
                     break
             time.sleep(0.01)
     finally:
         if proc.poll() is None and not killed:
-            proc.kill()
+            os.killpg(proc.pid, signal.SIGKILL)
         proc.wait(timeout=30)
     assert killed, "never reached the kill window"
     survivors = [p for p in os.listdir(parts) if p.startswith("part-")]
     assert 0 < len(survivors) < n_parts_total
 
-    # restart with --resume: must complete and match byte for byte
+    # restart with --resume: must complete (its own timeout)
     r = subprocess.run(cmd + ["--resume"], cwd=REPO, env=env,
                        capture_output=True, timeout=120)
     assert r.returncode == 0, r.stderr.decode()[-800:]
     assert b"resuming after" in r.stderr
+    return r.stderr
+
+
+def test_kill_worker_mid_run_then_resume(fi, tmp_path, monkeypatch):
+    """The per-shard loop (one process): killed, resumed, the bytes of an
+    uninterrupted port run and of the JAX package's."""
+    args, want = fi
+    monkeypatch.setenv("GHOSTM_TPU_MERGE_COLOCATED", "0")
+    ref_out = str(tmp_path / "ref.tsv")
+    assert tcli(args + ["--device", "cpu", "-o", ref_out]) == 0
+    with open(ref_out) as f:
+        assert f.read() == want
+    out = str(tmp_path / "hits.tsv")
+    cmd = [sys.executable, "-m", "ghostm_tpu_torch"] + args + [
+        "--device", "cpu", "-o", out]
+    _kill_mid_run_then_resume(cmd, out, 12,
+                              dict(os.environ, OMP_NUM_THREADS="1"))
+    with open(out) as f:
+        assert f.read() == want
+
+
+def test_kill_grid_mid_run_then_resume(fi, tmp_path):
+    """The JAX test's own case: `--cpu 2 --data-axis 1 --db-axis 2` (two
+    local ranks, a shard each, rank 0 writing the parts), its whole
+    process group killed mid-run, then --resume: the bytes of the JAX
+    package's run. A rank's collectives time out after 60 s, so no run
+    can hang on a dead peer."""
+    args, want = fi
+    out = str(tmp_path / "hits.tsv")
+    cmd = [sys.executable, "-m", "ghostm_tpu_torch"] + args + [
+        "--cpu", "2", "--data-axis", "1", "--db-axis", "2", "-o", out]
+    env = dict(os.environ, OMP_NUM_THREADS="1", GHOSTM_TPU_DIST_TIMEOUT="60")
+    err = _kill_mid_run_then_resume(cmd, out, 12, env)
+    assert b"grid (1x2) rank 1" in err
     with open(out) as f:
         assert f.read() == want
 

@@ -1,14 +1,19 @@
 """The port's CLI reproduces the committed config-1 goldens (BLOSUM62 and
 BLOSUM50) byte for byte on the CPU (plain versions of the kernels), from an
-index built by either package; what is not ported yet fails with a clear
-error."""
+index built by either package; the distributed flags run or refuse as
+the JAX CLI does."""
 
 import os
 
+import jax
 import pytest
 import torch
 
+from ghostm_tpu import engine as jengine
 from ghostm_tpu.cli import main as jcli
+from ghostm_tpu.config import Config as JConfig
+from ghostm_tpu.index import diskio as jdiskio
+from ghostm_tpu.parallel.mesh import make_mesh as jmake_mesh
 from ghostm_tpu_torch.cli import main as tcli
 
 # One intra-op thread: the suite runs several pytest workers at once and
@@ -50,12 +55,43 @@ def test_config1_blosum50_golden_cpu(tmp_path, db_pkg):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--coordinator", "h:1"], ["--data-axis", "2"], ["--num-processes", "2"],
-    ["--db-axis", "2"], ["--cpu", "2"],
+    ["--coordinator", "h:1"], ["--data-axis", "2", "--cpu", "1"],
+    ["--num-processes", "2", "--process-id", "0", "--coordinator",
+     "127.0.0.1:9"],
+    ["--db-axis", "2", "--cpu", "2"], ["--cpu", "2"],
 ])
-def test_cli_rejects_unported_flags(tmp_path, capsys, flags):
-    with pytest.raises(SystemExit) as e:
-        tcli(["aln", "-d", "x", "-i", READS, "-o", str(tmp_path / "h"),
-              "--device", "cpu", *flags])
-    assert e.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+def test_cli_rejects_unported_flags(tmp_path, flags):
+    """The distributed flags do what the JAX CLI does with them: a
+    coordinator without --num-processes is ignored and `--cpu 2` alone
+    runs on the CPU (both write the golden); a grid larger than --cpu
+    allows, and a db axis that is not the index's shard count, raise the
+    JAX package's ValueError; --num-processes 2 without per-batch parts
+    raises its message before joining any peer."""
+    prefix = str(tmp_path / "idx")
+    assert tcli(["db", "-i", DB, "-o", prefix]) == 0
+    out = str(tmp_path / "h.tsv")
+    args = ["aln", "-d", prefix, "-i", READS, "-o", out, "--device", "cpu",
+            "--batch", "128", *flags]
+    if flags[0] in ("--coordinator", "--cpu"):
+        assert tcli(args) == 0
+        with open(out) as f, open(os.path.join(GOLD,
+                                               "config1_hits.tsv")) as g:
+            assert f.read() == g.read()
+        return
+    if flags[0] == "--data-axis":
+        with pytest.raises(ValueError) as want:
+            jmake_mesh(2, 1, jax.devices()[:1])
+    elif flags[0] == "--db-axis":
+        with pytest.raises(ValueError) as want:
+            jengine.SearchEngine(JConfig(query_batch=128),
+                                 jdiskio.load_index(prefix), use_pallas=False,
+                                 mesh=jmake_mesh(1, 2))
+    with pytest.raises(ValueError) as got:
+        tcli(args)
+    if flags[0] == "--num-processes":
+        assert str(got.value) == ("multi-process runs need checkpoint_batches"
+                                  " > 0 (per-batch row-addressed result "
+                                  "parts)")
+    else:
+        assert str(got.value) == str(want.value)
+    assert not os.path.exists(out)

@@ -2,17 +2,20 @@
 (batch i flushed before batch i + 1 is launched, the same bytes),
 --profile (torch.profiler's Chrome trace), GHOSTM_TPU_HBM_LOG on a CPU
 engine (no file, a log line saying why), --debug-nans, the CLI's flags
-(the debug flags accepted; the mesh and multi-process flags still
-rejected), and run_search's host split. The config-1 golden is the
-expected table throughout (byte for byte)."""
+(the debug flags, and the mesh and multi-process flags: run, or refused
+as the JAX CLI refuses them), and run_search's host split. The config-1
+golden is the expected table throughout (byte for byte)."""
 
 import json
 import logging
 import os
+import re
 
+import jax
 import pytest
 import torch
 
+from ghostm_tpu.parallel.mesh import make_mesh as jmake_mesh
 from ghostm_tpu_torch import engine as tengine
 from ghostm_tpu_torch import native, pipeline
 from ghostm_tpu_torch.cli import main as tcli
@@ -177,13 +180,41 @@ def test_cli_accepts_the_debug_flags(index, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--data-axis", "2"], ["--db-axis", "2"], ["--coordinator", "h:1"],
-    ["--num-processes", "2"], ["--process-id", "1"], ["--cpu", "2"],
+    ["--data-axis", "2", "--cpu", "2"], ["--db-axis", "2", "--cpu", "2"],
+    ["--coordinator", "127.0.0.1:9", "--num-processes", "1"],
+    ["--num-processes", "2", "--checkpoint-batches", "1"],
+    ["--process-id", "2", "--num-processes", "2", "--coordinator",
+     "127.0.0.1:9", "--checkpoint-batches", "1"],
+    ["--cpu", "2", "--data-axis", "2", "--db-axis", "2"],
 ])
-def test_cli_still_rejects_mesh_flags(tmp_path, capsys, flags):
-    with pytest.raises(SystemExit) as e:
-        tcli(["aln", "-d", "x", "-i", READS, "-o", str(tmp_path / "h"),
-              "--device", "cpu", *flags])
-    assert e.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
-
+def test_cli_still_rejects_mesh_flags(index, tmp_path, monkeypatch, flags):
+    """The mesh and multi-process flags through the port's CLI: the
+    config-1 golden through two local ranks (`--cpu 2` with `--data-axis
+    2`, and with `--db-axis 2` over `db --shards 2`) and through one
+    process of a 1x1 grid (`--num-processes 1`, as the JAX CLI builds a
+    1x1 mesh for it); refused, before joining any peer: 2 processes
+    without a coordinator, a process id outside [0, 2), and a grid larger
+    than --cpu allows (the JAX package's "needs 4 devices", word for
+    word)."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    out = str(tmp_path / "h.tsv")
+    prefix = index
+    if flags[0] == "--db-axis":
+        prefix = str(tmp_path / "idx2")
+        assert tcli(["db", "-i", DB, "-o", prefix, "--shards", "2"]) == 0
+    args = [prefix, out, "--batch", "128", *flags]
+    if flags[0] in ("--data-axis", "--db-axis", "--coordinator"):
+        assert _aln(*args) == 0
+        with open(out) as f:
+            assert f.read() == _golden()
+        return
+    if flags[0] == "--cpu":
+        with pytest.raises(ValueError) as want:
+            jmake_mesh(2, 2, jax.devices()[:2])
+        match = re.escape(str(want.value))
+    else:
+        match = {"--num-processes": "2 processes need a coordinator",
+                 "--process-id": r"process id 2 is not in \[0, 2\)"}[flags[0]]
+    with pytest.raises(ValueError, match=match):
+        _aln(*args)
+    assert not os.path.exists(out)
