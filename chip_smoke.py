@@ -28,7 +28,13 @@ Phases, each printing one JSON line ({"phase": ...}):
            shapes: B1 at (128, 13800) with runs of 8 (the one-block L =
            16384 instance), B3 at 120 x Lq 1728, band 64, B4 at 9 x (5, 24);
            B4 on 3 keys at 3 x (49152, 16), top 8 (the multi-shard select
-           at 2 shards: the 3-key warp instance);
+           at 2 shards: the 3-key warp instance); R1 (refine: the moves
+           DP and the traceback walk in one launch) at the main path's
+           shapes, 81,920 hits at Lq 40 (BLOSUM62) and Lq 88 (BLOSUM50),
+           band 32, and 1,280 at Lq 1728, band 64: its move plane (the
+           kernel's debug entry, the DP alone) equal to sw_banded_moves'
+           on every cell, then its 9 stat rows held against the plain
+           version like every row;
   golden   `db` + `aln --batch 128` through the port's CLI on CUDA over
            tests/golden/config1_*, byte-compared with the golden table;
   golden_b50  the same index through `aln --matrix BLOSUM50 --gap-open 13
@@ -122,7 +128,8 @@ Phases, each printing one JSON line ({"phase": ...}):
 The launch counters are set to 0 just before each main-path run (each
 golden aln and each scale leg's timed run; in each rank of a grid) and
 read just after; every
-kernel of that path must have launched in its run. The wrappers also
+kernel of that path must have launched in its run, and R1 once a batch
+on every timed leg (one launch refines a batch, at any shard count). The wrappers also
 count launches by input shape (`_build.SHAPES`): each `kernels` row
 reports the launches of its own shape on its path (`launches`) beside the
 wrapper's count at all shapes (`launches_wrapper`), and a row whose shape
@@ -354,7 +361,16 @@ def per_kernel(launches: dict) -> dict:
             "B2": launches["sort_vote_rank_rows"]
             + launches["merge_vote_rank_rows"],
             "B3": launches["sw_fused"], "B4": launches["lex_rank_rows"],
-            "B5": launches["sw_scored"], "B6": launches["sw_wave"]}
+            "B5": launches["sw_scored"], "B6": launches["sw_wave"],
+            "R1": launches["refine"]}
+
+
+def refine_once_a_batch(tag: str, launches: dict, batches: int) -> None:
+    """The engine refines a batch in one launch of R1, whatever its shards
+    (on a grid rank too)."""
+    if launches["refine"] != batches:
+        raise SystemExit(f"{tag}: R1 launched {launches['refine']} times "
+                         f"in {batches} batches, not once a batch")
 
 
 def shape_counts(shapes: dict) -> dict:
@@ -709,7 +725,98 @@ def kernel_phase(dev):
         device_ms=True, shape=[3, Q, M])
     del x, k1, keys, a, b, q, w, lo, hi, tab, ops
     torch.cuda.empty_cache()
+    refine_rows(dev, run)
     return entries
+
+
+def refine_case(gen, R: int, K: int, Lq: int, B: int, dev):
+    """Ranked hits of R reads x K for refine (its own generator): frames
+    0-5, g0 below 2^28; half the windows hold their hit's query frame on
+    diagonal 8, a quarter with 3 residues inserted halfway (a gap); spans
+    cut up to 8 positions into each end of the window; every eighth hit
+    dead (its window wholly outside the span)."""
+    from ghostm_tpu_torch.kernels.refine import query_codes
+
+    N = R * K
+    draw = lambda hi, shape, dt=torch.int32: torch.randint(
+        0, hi, shape, generator=gen, device=dev, dtype=dt)
+    q3 = draw(24, (R, 6, Lq), torch.int8)
+    packed = torch.zeros((9, R, K), dtype=torch.int32, device=dev)
+    packed[2] = draw(6, (R, K))
+    g0 = draw(1 << 28, (N,))
+    packed[6] = g0.view(R, K)
+    w = draw(26, (N, Lq + B), torch.int8)
+    qc = query_codes(q3, packed)
+    h = Lq // 2
+    w[::2, 8:8 + Lq] = qc[::2]
+    w[1::4, 8:8 + h] = qc[1::4, :h]
+    w[1::4, 11 + h:11 + Lq] = qc[1::4, h:]
+    lo = g0 - draw(8, (N,))
+    hi = g0 + Lq + B - draw(8, (N,))
+    hi[7::8] = g0[7::8]
+    return q3, packed, w, lo, hi
+
+
+def refine_rows(dev, run) -> None:
+    """R1 at the main path's shapes (its own generator): 8192 reads x 10
+    hits at Lq 40 (`scale`, BLOSUM62 11/1) and Lq 88 (`scale_b50_250bp`,
+    BLOSUM50 13/2), 128 x 10 at Lq 1728, band 64 (`longread_5kbp`), on
+    the engine's hard-stop matrices and its table built once. The stats
+    against the plain version (run), and first the move plane of the
+    kernel's debug entry (the DP alone) against sw_banded_moves' plane;
+    the plane's bytes through device memory once give a second bound
+    beside the contract's (inputs and outputs only)."""
+    from ghostm_tpu_torch.kernels import refine as R1
+    from ghostm_tpu_torch.ops.scoring import padded_matrix
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    mats = {m: torch.from_numpy(padded_matrix(m, hard_stop=True).astype(
+        np.int32)).to(dev) for m in ("BLOSUM62", "BLOSUM50")}
+    K = 10
+    for leg, R, Lq, B, m, go, ge in (
+            ("scale", 8192, 40, 32, "BLOSUM62", 11, 1),
+            ("scale_b50_250bp", 8192, 88, 32, "BLOSUM50", 13, 2),
+            ("longread_5kbp", 128, 1728, 64, "BLOSUM62", 11, 1)):
+        N = R * K
+        q3, packed, w, lo, hi = refine_case(gen, R, K, Lq, B, dev)
+        mat = mats[m]
+        tab = R1.score_table(mat)
+        tmax = int(tab.max())
+        kw = dict(band=B, gap_open=go, gap_extend=ge)
+        moves_err = max_err(R1.refine_moves(q3, packed, w, lo, hi, tab, **kw),
+                            R1.moves_plain(q3, packed, mat, w, lo, hi, **kw))
+        if moves_err:
+            raise SystemExit(f"R1 at N {N}, Lq {Lq}: the kernel's move "
+                             "plane differs from sw_banded_moves'")
+        got = R1.refine_stats(q3, packed, mat, w, lo, hi, table=tab,
+                              table_max=tmax, **kw)
+        # the DP alone (the debug entry's launch, no walk): its device ms
+        reps = 5 if Lq > 100 else 20
+        dp_ms = time_ms(lambda: R1.launch(
+            q3, packed, w, lo, hi, tab, table_max=tmax, walk=False, **kw),
+            reps, flush, device_only=True)
+        nbytes = (q3.numel() + 2 * N * 4 + w.numel() + 2 * N * 4
+                  + tab.numel() * 4 + 9 * N * 4)
+        plane = Lq * -(-B // 4) * 4 * N
+        run(f"R1 refine (N {N}, Lq {Lq}, band {B})",
+            "ghostm_tpu_torch/csrc/refine.cu", "ghostm_tpu/engine.py:490",
+            lambda: R1.refine_stats(q3, packed, mat, w, lo, hi, table=tab,
+                                    table_max=tmax, **kw),
+            lambda: R1.refine_stats_plain(q3, packed, mat, w, lo, hi, **kw),
+            None, nbytes, 12 * N * Lq * B,
+            "12 int32 ops per DP cell (the walk's steps not counted)",
+            reps=reps, launch=(leg, "refine", (N, Lq + B)), cells=N * Lq * B,
+            device_ms=True, shape=[N, Lq, B], matrix=m, gaps=[go, ge],
+            moves_max_abs_err=moves_err, dp_device_ms=dp_ms,
+            plane_bytes=plane,
+            bound_with_plane_ms=bound(nbytes + plane, 12 * N * Lq * B)[0],
+            hits=int((got[8] > 0).sum()),
+            gapped=int((got[7] > 0).sum()))
+        del q3, packed, w, lo, hi, got
+        torch.cuda.empty_cache()
+    del flush
 
 
 def golden_phase(prefix: str, tag: str, flags, gold: str, need,
@@ -786,7 +893,7 @@ def golden_tables(prefix: str, d: str) -> dict:
     if cli(["db", "-i", os.path.join(golds, "config1_db.fa"), "-o", prefix2,
             "--shards", "2"]) != 0:
         raise SystemExit("golden_tables: db failed")
-    need = ("sort_vote_rank_rows", "sw_fused", "lex_rank_rows")
+    need = ("sort_vote_rank_rows", "sw_fused", "lex_rank_rows", "refine")
     select = ("lex_rank_rows", SELECT_SHAPE(768))
     runs = {}
     for tag, merge in (("golden_tables_merged", "1"),
@@ -835,12 +942,12 @@ def golden_phases():
             raise SystemExit("golden: db failed")
         golden = golden_phase(
             prefix, "golden", ["--batch", "128"], "config1_hits.tsv",
-            ("sort_vote_rank_rows", "sw_fused", "lex_rank_rows"))
+            ("sort_vote_rank_rows", "sw_fused", "lex_rank_rows", "refine"))
         b50 = golden_phase(
             prefix, "golden_b50", ["--batch", "128", "--matrix", "BLOSUM50",
                                    "--gap-open", "13", "--gap-extend", "2"],
             "config1_b50_hits.tsv",
-            ("sort_vote_rank_rows", "sw_scored", "lex_rank_rows"),
+            ("sort_vote_rank_rows", "sw_scored", "lex_rank_rows", "refine"),
             forbid=("sw_fused", "sw_wave"))
         tables = golden_tables(prefix, d)
         grid_goldens(prefix, os.path.join(d, "idx_2shards"), d)
@@ -853,7 +960,7 @@ def golden_phases():
         longread = golden_phase(
             prefix, "golden_longread", ["--config", cfgf, "--max-read-len",
                                         "5300"], "longread_hits.tsv",
-            ("sort_rows", "sw_fused", "lex_rank_rows"),
+            ("sort_rows", "sw_fused", "lex_rank_rows", "refine"),
             forbid=("sort_vote_rank_rows", "merge_vote_rank_rows"),
             reads="longread_reads.fa")
     return dict(golden=golden, golden_b50=b50, golden_longread=longread,
@@ -869,12 +976,12 @@ def golden_debug(prefix: str, d: str, plain: dict) -> dict:
     four keys, peak_bytes_in_use > 0). Each byte-identical."""
     from ghostm_tpu_torch.pipeline import HBM_KEYS
 
-    need = ("sort_vote_rank_rows", "sw_fused", "lex_rank_rows")
+    need = ("sort_vote_rank_rows", "sw_fused", "lex_rank_rows", "refine")
     runs = {}
     tag = "golden_debug_check"
     runs[tag] = golden_phase(prefix, tag, ["--batch", "128", "--check"],
                              "config1_hits.tsv", need, env={})
-    for k in need:
+    for k in need[:3]:   # refine runs once: --check repeats the search
         if runs[tag][0][k] != 2 * plain[k]:
             raise SystemExit(f"{tag}: {k} launched {runs[tag][0][k]} "
                              f"times, not twice the golden's {plain[k]}")
@@ -910,7 +1017,7 @@ def grid_goldens(prefix: str, prefix2: str, d: str) -> None:
     from ghostm_tpu_torch.cli import main as cli
 
     golds = os.path.join(ROOT, "tests", "golden")
-    need = ("sort_vote_rank_rows", "sw_fused", "lex_rank_rows")
+    need = ("sort_vote_rank_rows", "sw_fused", "lex_rank_rows", "refine")
     for tag, idx, data, db in (("golden_grid_data2", prefix, 2, 1),
                                ("golden_grid_db2", prefix2, 1, 2)):
         out = os.path.join(d, f"{tag}.tsv")
@@ -1270,9 +1377,10 @@ def scale_phase(n_subjects: int, n_timed: int):
          shape_launches=shape_counts(shapes),
          hits=int(((last[1] >> 15) > 0).sum()))
     for k in ("sort_rows", "merge_vote_rank_rows", "sw_fused",
-              "lex_rank_rows"):
+              "lex_rank_rows", "refine"):
         if launches[k] == 0:
             raise SystemExit(f"scale: kernel {k} was never launched")
+    refine_once_a_batch("scale", launches, n_timed)
     if not (last[1] >> 15).max() > 0:
         raise SystemExit("scale: no hits in the last batch")
     emit(phase="scale_stages", **stage_breakdown(eng, *batches[1][1:]))
@@ -1383,6 +1491,7 @@ def score_fed_leg(tag: str, cfg, index, batches, kernel: str,
                          "batches, not once a batch")
     if launches["sw_fused"]:
         raise SystemExit(f"{tag}: the fused kernel B3 was launched")
+    refine_once_a_batch(tag, launches, len(batches) - 1)
     if not (last[1] >> 15).max() > 0:
         raise SystemExit(f"{tag}: no hits in the last batch")
     if not same:
@@ -1439,9 +1548,10 @@ def longread_phase(n_short: int):
          top_hit_is_source=int((top == src).sum()), crosscheck_reads=16,
          crosscheck_equal=same, crosscheck_hits=xhits)
     for k in ("sort_rows_tiles", "sort_rows_merge", "sw_fused",
-              "lex_rank_rows"):
+              "lex_rank_rows", "refine"):
         if launches[k] == 0:
             raise SystemExit(f"longread_5kbp: kernel {k} was never launched")
+    refine_once_a_batch("longread_5kbp", launches, TIMED_LONG)
     if launches["sort_vote_rank_rows"] or launches["merge_vote_rank_rows"]:
         raise SystemExit("longread_5kbp: B2 was launched on chained rows")
     if not hits:
@@ -1560,6 +1670,7 @@ def tail_leg(tag: str, cfg, index, batches, shards: int):
             or launches["merge_vote_rank_rows"]:
         raise SystemExit(f"{tag}: CSR key rows must take B2's monolithic "
                          "entry alone")
+    refine_once_a_batch(tag, launches, nb)
     if not (last[1] >> 15).max() > 0:
         raise SystemExit(f"{tag}: no hits in the last batch")
     if not same:
@@ -1635,6 +1746,7 @@ def tail_phase(proc, prefix: str, n_subjects: int, dev, entries: list):
     Q = cfg.query_batch * 6
     mesh_leg("mesh_tail_1x2", prefix, cfg, batches[:1 + TIMED_MESH], wants,
              1, 2, (("sort_vote_rank_rows", None), ("sw_fused", None),
+                    ("refine", None),
                     ("lex_rank_rows", SELECT_SHAPE(Q)),
                     ("lex_rank_rows", (9, cfg.query_batch, 48))), mdir)
     del wants
@@ -1746,6 +1858,7 @@ def smoke(args, _build, tail: list, tail_dir: str) -> int:
     mesh_leg("mesh_scale_2x1", os.path.join(mdir, "idx"), cfg,
              batches[:1 + TIMED_MESH], wants, 2, 1,
              (("sort_rows", None), ("merge_vote_rank_rows", None),
+              ("refine", None),
               ("sw_fused", None), ("lex_rank_rows", (9, 4096, 48))), mdir)
     del wants
     shutil.rmtree(mdir)

@@ -18,8 +18,9 @@ One batch of raw DNA reads runs, on the engine's device:
   5. RANK: the disjoint-mask merge over shards, then per read the top
      max_hits by (-score, gsid, frame, qend, s_end) with the original
      position as the final tie-break (kernel B4);
-  6. REFINE: each hit's window from its shard, moves DP + traceback
-     (plain torch);
+  6. REFINE: each hit's window from its shard, then the moves DP and
+     the traceback walk of every hit in one launch (kernel R1,
+     kernels/refine.py);
   7. the packed (6, R, K) transport the pipeline fetches and unpacks.
 A CUDA engine launches the kernels; a CPU engine (device="cpu", the tests)
 runs their plain versions. Both return the same integers as the JAX
@@ -78,11 +79,12 @@ import torch
 from ghostm_tpu_torch.config import Config
 from ghostm_tpu_torch.index.diskio import StackedIndex, merge_shards
 from ghostm_tpu_torch.kernels import candidates as cand_mod
+from ghostm_tpu_torch.kernels import refine as refine_mod
 from ghostm_tpu_torch.kernels import (
-    seed_lookup, sort, sw_fused, sw_scored, sw_wave, sw_xla,
+    seed_lookup, sort, sw_fused, sw_scored, sw_wave,
 )
 from ghostm_tpu_torch.ops.encode import ALPHA, SENTINEL
-from ghostm_tpu_torch.ops.scoring import LOW, padded_matrix
+from ghostm_tpu_torch.ops.scoring import padded_matrix
 from ghostm_tpu_torch.ops.translate import (
     six_frame_translate, six_frame_translate_torch,
 )
@@ -724,23 +726,16 @@ def refine_stats_packed(
     lo: torch.Tensor,       # (R*K,) subject span start
     hi: torch.Tensor,       # (R*K,)
     *, band: int, gap_open: int, gap_extend: int,
+    table: torch.Tensor | None = None, table_max: int | None = None,
 ) -> torch.Tensor:
     """Moves DP + traceback on pre-fetched windows -> (9, R, K) stats
-    (8 stat fields + score_check)."""
-    R, _, Lq = qcodes3.shape
-    K = packed.shape[2]
-    dev = qcodes3.device
-    frame = packed[2].reshape(-1).clamp(0, NFRAMES - 1).to(torch.int64)
-    g0 = packed[6].reshape(-1)
-    flat_read = torch.arange(R, device=dev).repeat_interleave(K)
-    qc = qcodes3[flat_read, frame].to(torch.int32)
-    sc = sw_xla.banded_scores(qc, w, matrix, band)
-    sc = torch.where(sw_xla.in_span(g0, lo, hi, Lq, band), sc,
-                     torch.full_like(sc, LOW))
-    s2, ie2, be2, moves = sw_xla.sw_banded_moves(sc, gap_open, gap_extend)
-    stats = sw_xla.traceback_stats_device(moves, ie2, be2, qc, w)
-    rows = [stats[k] for k in SearchEngine.STAT_KEYS] + [s2]
-    return torch.stack([r.reshape(R, K) for r in rows])
+    (8 stat fields + score_check): stage R1 (kernels/refine.py), its
+    kernel on CUDA tensors, its plain version on CPU ones. table /
+    table_max: refine.score_table(matrix) and its largest value, from a
+    caller that keeps them."""
+    return refine_mod.refine_stats(
+        qcodes3, packed, matrix, w, lo, hi, band=band, gap_open=gap_open,
+        gap_extend=gap_extend, table=table, table_max=table_max)
 
 
 @dataclasses.dataclass
@@ -762,8 +757,7 @@ class SearchEngine:
     tensors a shard) and runs the batch step on `device` ("cuda" by
     default; "cpu" runs the plain versions)."""
 
-    STAT_KEYS = ("qstart", "qend", "sstart", "send", "length", "matches",
-                 "mismatch", "gapopen")
+    STAT_KEYS = refine_mod.STAT_KEYS
 
     def __init__(self, cfg: Config, index: StackedIndex,
                  device: str | torch.device = "cuda",
@@ -870,6 +864,9 @@ class SearchEngine:
                                                                band)
         )
         self.sw_table_max = int(self.sw_table.max())
+        # refine's score table (kernel R1), once
+        self.refine_table = refine_mod.score_table(self.matrix)
+        self.refine_table_max = int(self.refine_table.max())
         self.shard_dev: List[dict] = []
         for i, (tab_main, tab_aux) in zip(own, maps):
             st = index.shards[i].store
@@ -1004,10 +1001,13 @@ class SearchEngine:
                     w = torch.where(m[:, None], w2, w)
                     lo = torch.where(m, lo2, lo)
                     hi = torch.where(m, hi2, hi)
+        # the kernel takes int8 windows (a grid rank's arrive as int32
+        # slices of the all_reduce rows) and contiguous spans
         return refine_stats_packed(
-            qcodes3, packed, self.matrix, w.to(torch.int32), lo, hi,
-            band=cfg.band_width, gap_open=cfg.gap_open,
-            gap_extend=cfg.gap_extend,
+            qcodes3, packed, self.matrix, w.to(torch.int8).contiguous(),
+            lo.contiguous(), hi.contiguous(), band=cfg.band_width,
+            gap_open=cfg.gap_open, gap_extend=cfg.gap_extend,
+            table=self.refine_table, table_max=self.refine_table_max,
         )
 
     def step_dna(self, dna: torch.Tensor, lens: torch.Tensor,

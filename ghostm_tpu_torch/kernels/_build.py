@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("sort_rows", "sort_vote", "merge_vote", "sw_fused", "lex_rank",
-           "sw_scored")
+           "sw_scored", "refine")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -43,7 +43,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 LAUNCHES: Dict[str, int] = dict.fromkeys((
     "sort_rows", "sort_rows_tiles", "sort_rows_merge", "sort_vote_rank_rows",
     "merge_vote_rank_rows", "sw_fused", "lex_rank_rows", "sw_scored",
-    "sw_wave",
+    "sw_wave", "refine",
 ), 0)
 SHAPES: Counter = Counter()
 

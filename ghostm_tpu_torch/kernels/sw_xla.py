@@ -5,7 +5,8 @@ tie-breaks (the contract of ghostm_tpu.oracle.sw_banded). Three uses:
   1. the plain version of kernel B3 (kernels/sw_fused.py);
   2. the FINAL-HIT path: `sw_banded_moves` records per-cell traceback moves
      so the engine can recover start coordinates and alignment statistics
-     for the few reported hits (the refine step, plain torch on the GPU);
+     for the few reported hits (the plain version of the refine kernel
+     R1, kernels/refine.py);
   3. the CPU path of the engine.
 
 The in-row E dependency (gap-in-query) is resolved with an EXACT prefix

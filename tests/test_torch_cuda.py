@@ -13,9 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from ghostm_tpu_torch.kernels import _build, sw_fused, sw_scored, sw_wave
+from ghostm_tpu_torch.kernels import _build, refine, sw_fused, sw_scored
 from ghostm_tpu_torch.kernels import sort as S
+from ghostm_tpu_torch.kernels import sw_wave, sw_xla
 from ghostm_tpu_torch.ops.scoring import padded_matrix
+from refine_cases import CONFIGS, make_case
 
 pytestmark = pytest.mark.cuda
 BIG = 1 << 30
@@ -759,3 +761,108 @@ def test_grid_cli_golden_cuda(dev, tmp_path, monkeypatch):
             got = json.load(f)["launches"]
         for k in ("sort_vote_rank_rows", "sw_fused", "lex_rank_rows"):
             assert got[k] > 0, (r, k)
+
+
+def _refine_inputs(dev, R, K, lq, band, cfg):
+    """refine_cases.make_case on the card, with the matrix and gap costs
+    of CONFIGS[cfg]."""
+    name, go, ge = CONFIGS[cfg]
+    mat = torch.from_numpy(padded_matrix(name, hard_stop=True).astype(
+        np.int32)).to(dev)
+    case = (torch.from_numpy(a).to(dev)
+            for a in make_case(lq * 1000 + band, R, K, lq, band))
+    return (*case, mat, dict(band=band, gap_open=go, gap_extend=ge))
+
+
+# the CPU test's shapes and configurations (tests/test_torch_refine.py),
+# bands that leave a lane part-filled or empty, one hit, and the main
+# path's shapes: 8192 reads x 10 hits at Lq 40 and 88 (100 and 250 bp
+# reads), 128 x 10 at Lq 1728 band 64 (5 kbp), 8 x 8 at Lq 3456 band 128
+REFINE_CASES = [
+    *((2, 8, lq, band, "b62") for lq, band in (
+        (40, 32), (88, 32), (24, 16), (60, 64), (50, 128))),
+    (1, 8, 300, 64, "b62"),
+    *((2, 8, lq, band, c) for c in ("b50", "pam30", "open0", "ext0")
+      for lq, band in ((40, 32), (60, 64))),
+    (3, 7, 40, 1, "b62"), (3, 7, 40, 48, "b62"), (3, 7, 37, 80, "b50"),
+    (3, 7, 41, 96, "open0"), (5, 9, 40, 18, "ext0"), (1, 1, 40, 32, "b62"),
+    (8192, 10, 40, 32, "b62"), (8192, 10, 88, 32, "b50"),
+    (128, 10, 1728, 64, "b62"), (8, 8, 3456, 128, "b62"),
+]
+
+
+@pytest.mark.parametrize("R,K,lq,band,cfg", REFINE_CASES)
+def test_refine_kernel(dev, R, K, lq, band, cfg):
+    """Kernel R1 equals its plain version: all 9 rows, every hit kind of
+    make_case, with the table built by the wrapper and passed in as the
+    engine passes it."""
+    q3, packed, w, lo, hi, mat, kw = _refine_inputs(dev, R, K, lq, band, cfg)
+    want = refine.refine_stats_plain(q3, packed, mat, w, lo, hi, **kw)
+    got = _launched("refine", lambda: refine.refine_stats(
+        q3, packed, mat, w, lo, hi, **kw))
+    assert torch.equal(got, want)
+    tab = refine.score_table(mat)
+    again = _launched("refine", lambda: refine.refine_stats(
+        q3, packed, mat, w, lo, hi, table=tab, table_max=int(tab.max()),
+        **kw))
+    assert torch.equal(again, want)
+    assert int(want[8].max()) > 0
+
+
+@pytest.mark.parametrize("R,K,lq,band,cfg", [
+    c for c in REFINE_CASES if c[0] * c[1] * c[2] * c[3] < 1 << 24
+] + [(8192, 10, 40, 32, "b62"), (128, 10, 1728, 64, "b62")])
+def test_refine_kernel_moves_plane(dev, R, K, lq, band, cfg):
+    """The kernel's debug entry (the DP alone, no walk): its move plane
+    equals sw_xla.sw_banded_moves' on every cell, and (score, i_end,
+    b_end) too."""
+    q3, packed, w, lo, hi, mat, kw = _refine_inputs(dev, R, K, lq, band, cfg)
+    want = refine.moves_plain(q3, packed, mat, w, lo, hi, **kw)
+    got = _launched("refine", lambda: refine.refine_moves(
+        q3, packed, w, lo, hi, refine.score_table(mat), **kw))
+    for g, x in zip(got, want):
+        assert g.shape == x.shape and torch.equal(g.to(x.dtype), x)
+
+
+def test_refine_never_plain_on_cuda(dev, tmp_path, monkeypatch):
+    """With refine's plain functions made to raise, a CUDA engine batch,
+    the config-1 golden through aln on CUDA and a grid of two ranks (each
+    counting its launches) still give the CPU engine's stats and the
+    golden: no CUDA path runs refine in plain torch, and the engine
+    launches R1 once a batch."""
+    from ghostm_tpu_torch.cli import main as cli
+
+    g, c, dna, lens = _golden_engines(tmp_path)
+    want = c.fetch(c.search_refine_async_dna(dna, lens))
+
+    def boom(*a, **k):
+        raise AssertionError("refine ran in plain torch on a CUDA path")
+
+    for mod, name in ((refine, "refine_stats_plain"), (refine, "moves_plain"),
+                      (sw_xla, "sw_banded_moves"),
+                      (sw_xla, "traceback_stats_device")):
+        monkeypatch.setattr(mod, name, boom)
+    before = _build.LAUNCHES["refine"]
+    got = g.fetch(g.search_refine_async_dna(dna, lens))
+    assert _build.LAUNCHES["refine"] == before + 1
+    np.testing.assert_array_equal(got, want)
+    gold = os.path.join(os.path.dirname(__file__), "golden")
+    reads = os.path.join(gold, "config1_reads.fa")
+    before = _build.LAUNCHES["refine"]
+    out = str(tmp_path / "hits.tsv")
+    assert cli(["aln", "-d", str(tmp_path / "idx"), "-i", reads, "-o", out,
+                "--device", "cuda", "--batch", "128"]) == 0
+    with open(out) as f, open(os.path.join(gold, "config1_hits.tsv")) as h:
+        assert f.read() == h.read()
+    assert _build.LAUNCHES["refine"] > before
+    counts = str(tmp_path / "launches")
+    monkeypatch.setenv("GHOSTM_TPU_LAUNCH_COUNTS", counts)
+    out = str(tmp_path / "grid.tsv")
+    assert cli(["aln", "-d", str(tmp_path / "idx"), "-i", reads, "-o", out,
+                "--device", "cuda", "--batch", "128", "--data-axis",
+                "2"]) == 0
+    with open(out) as f, open(os.path.join(gold, "config1_hits.tsv")) as h:
+        assert f.read() == h.read()
+    for r in range(2):
+        with open(f"{counts}.r{r}.json") as f:
+            assert json.load(f)["launches"]["refine"] > 0, r
