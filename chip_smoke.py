@@ -4,6 +4,10 @@
     python3 chip_smoke.py [--subjects N]
     python3 chip_smoke.py --time-select-rank ROOT   (B4's select rows only,
                                                      with the port at ROOT)
+    python3 chip_smoke.py --refine-rows   (the build, then R1's rows and
+                                           its layouts across N only)
+    python3 chip_smoke.py --time-refine ROOT   (R1's device ms only, with
+                                                the port at ROOT)
 
 Phases, each printing one JSON line ({"phase": ...}):
   device   the card's name and power limit (nvidia-smi);
@@ -31,10 +35,13 @@ Phases, each printing one JSON line ({"phase": ...}):
            at 2 shards: the 3-key warp instance); R1 (refine: the moves
            DP and the traceback walk in one launch) at the main path's
            shapes, 81,920 hits at Lq 40 (BLOSUM62) and Lq 88 (BLOSUM50),
-           band 32, and 1,280 at Lq 1728, band 64: its move plane (the
-           kernel's debug entry, the DP alone) equal to sw_banded_moves'
-           on every cell, then its 9 stat rows held against the plain
-           version like every row;
+           band 32, and 1,280 at Lq 1728, band 64, and at 10 kbp reads'
+           640 at Lq 3456, band 128: in each of its layouts (the thread
+           and the warp layout) its move plane (the kernel's debug entry,
+           the DP alone) equal to sw_banded_moves' on every cell and its
+           9 stat rows equal to the plain version's; then the row in the
+           layout its rule picks, held against the plain version like
+           every row, with each layout's device ms, DP alone and walk;
   golden   `db` + `aln --batch 128` through the port's CLI on CUDA over
            tests/golden/config1_*, byte-compared with the golden table;
   golden_b50  the same index through `aln --matrix BLOSUM50 --gap-open 13
@@ -395,13 +402,14 @@ def make_runner(dev, entries: list):
 
     def run(name, source, replaces, kern, plain, library, nbytes, nops,
             ops_note, reps=20, launch=None, cells=None, device_ms=False,
-            **extra):
+            plain_reps=3, **extra):
         """launch: (main path, wrapper, input shapes) of the launches that
         the final line reports for this row; None: not on a main path.
         cells: the DP cells of an SW row, for the thread-instructions a
         cell its time allows (issue slots of 4 schedulers an SM at the top
         clock, 32 lanes each). device_ms: also time the wrapper's device
-        work without its host work."""
+        work without its host work. plain_reps 0: the plain version is run
+        once, for the check, and not timed (plain_ms None)."""
         out_k, out_p = kern(), plain()
         torch.cuda.synchronize()
         err = max_err(out_k, out_p)
@@ -409,7 +417,7 @@ def make_runner(dev, entries: list):
         ms = time_ms(kern, reps, flush)
         if device_ms:
             extra["device_ms"] = time_ms(kern, reps, flush, device_only=True)
-        plain_ms = time_ms(plain, 3, flush)
+        plain_ms = time_ms(plain, plain_reps, flush) if plain_reps else None
         lib_ms = time_ms(library, reps, flush) if library else None
         b_ms, b_by = bound(nbytes, nops)
         e = dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -757,15 +765,48 @@ def refine_case(gen, R: int, K: int, Lq: int, B: int, dev):
     return q3, packed, w, lo, hi
 
 
+# R1's shapes: (main path or None, reads, Lq, band, matrix, gap costs);
+# K = 10 hits a read
+REFINE_SHAPES = (
+    ("scale", 8192, 40, 32, "BLOSUM62", 11, 1),
+    ("scale_b50_250bp", 8192, 88, 32, "BLOSUM50", 13, 2),
+    ("longread_5kbp", 128, 1728, 64, "BLOSUM62", 11, 1),
+    (None, 64, 3456, 128, "BLOSUM62", 11, 1),    # 10 kbp reads
+)
+
+
+def layout_name(lanes: int, diags: int) -> str:
+    return f"{'warp' if lanes == 32 else 'thread'} ({lanes}x{diags})"
+
+
+def refine_layout_times(R1, args, kw, tmax, reps, flush) -> dict:
+    """Each layout R1 takes at this shape, forced through launch: the
+    device ms of the kernel, of its DP alone (the debug entry's launch, no
+    walk) and the walk's (the difference)."""
+    times = {}
+    for lanes, diags in R1.layouts(args[0].shape[2], kw["band"]):
+        t = {k: time_ms(lambda: R1.launch(*args, table_max=tmax, walk=walk,
+                                          lanes=lanes, **kw),
+                        reps, flush, device_only=True)
+             for k, walk in (("device_ms", True), ("dp_device_ms", False))}
+        t["walk_ms"] = t["device_ms"] - t["dp_device_ms"]
+        times[layout_name(lanes, diags)] = t
+    return times
+
+
 def refine_rows(dev, run) -> None:
     """R1 at the main path's shapes (its own generator): 8192 reads x 10
     hits at Lq 40 (`scale`, BLOSUM62 11/1) and Lq 88 (`scale_b50_250bp`,
-    BLOSUM50 13/2), 128 x 10 at Lq 1728, band 64 (`longread_5kbp`), on
-    the engine's hard-stop matrices and its table built once. The stats
-    against the plain version (run), and first the move plane of the
-    kernel's debug entry (the DP alone) against sw_banded_moves' plane;
-    the plane's bytes through device memory once give a second bound
-    beside the contract's (inputs and outputs only)."""
+    BLOSUM50 13/2), 128 x 10 at Lq 1728, band 64 (`longread_5kbp`), and 64
+    x 10 at Lq 3456, band 128 (10 kbp reads: on no leg; the plain version
+    run once for the check, not timed), on the engine's hard-stop matrices
+    and its table built once. In every layout the kernel takes at the
+    shape (R1.layouts): the move plane of the kernel's debug entry (the DP
+    alone) against sw_banded_moves' plane and the stats against the plain
+    version; then the row (run) in the layout R1.layout picks, and each
+    layout's device ms, its DP alone and its walk. The plane's bytes
+    through device memory once give a second bound beside the contract's
+    (inputs and outputs only)."""
     from ghostm_tpu_torch.kernels import refine as R1
     from ghostm_tpu_torch.ops.scoring import padded_matrix
 
@@ -775,48 +816,149 @@ def refine_rows(dev, run) -> None:
     mats = {m: torch.from_numpy(padded_matrix(m, hard_stop=True).astype(
         np.int32)).to(dev) for m in ("BLOSUM62", "BLOSUM50")}
     K = 10
-    for leg, R, Lq, B, m, go, ge in (
-            ("scale", 8192, 40, 32, "BLOSUM62", 11, 1),
-            ("scale_b50_250bp", 8192, 88, 32, "BLOSUM50", 13, 2),
-            ("longread_5kbp", 128, 1728, 64, "BLOSUM62", 11, 1)):
+    for leg, R, Lq, B, m, go, ge in REFINE_SHAPES:
         N = R * K
         q3, packed, w, lo, hi = refine_case(gen, R, K, Lq, B, dev)
         mat = mats[m]
         tab = R1.score_table(mat)
         tmax = int(tab.max())
         kw = dict(band=B, gap_open=go, gap_extend=ge)
-        moves_err = max_err(R1.refine_moves(q3, packed, w, lo, hi, tab, **kw),
-                            R1.moves_plain(q3, packed, mat, w, lo, hi, **kw))
-        if moves_err:
-            raise SystemExit(f"R1 at N {N}, Lq {Lq}: the kernel's move "
-                             "plane differs from sw_banded_moves'")
-        got = R1.refine_stats(q3, packed, mat, w, lo, hi, table=tab,
-                              table_max=tmax, **kw)
-        # the DP alone (the debug entry's launch, no walk): its device ms
+        args = (q3, packed, w, lo, hi, tab)
+        want_moves = R1.moves_plain(q3, packed, mat, w, lo, hi, **kw)
+        want = R1.refine_stats_plain(q3, packed, mat, w, lo, hi, **kw)
+        moves_err = stats_err = 0
+        for lanes, diags in R1.layouts(Lq, B):
+            moves_err = max(moves_err, max_err(
+                R1.refine_moves(*args, lanes=lanes, **kw), want_moves))
+            got = R1.launch(*args, table_max=tmax, walk=True, lanes=lanes,
+                            **kw)[0]
+            stats_err = max(stats_err, max_err(got.view(want.shape), want))
+            if moves_err or stats_err:
+                raise SystemExit(
+                    f"R1 at N {N}, Lq {Lq}, {layout_name(lanes, diags)}: "
+                    f"the kernel differs from the plain version (moves "
+                    f"{moves_err}, stats {stats_err})")
+        del want_moves
         reps = 5 if Lq > 100 else 20
-        dp_ms = time_ms(lambda: R1.launch(
-            q3, packed, w, lo, hi, tab, table_max=tmax, walk=False, **kw),
-            reps, flush, device_only=True)
+        layouts = refine_layout_times(R1, args, kw, tmax, reps, flush)
         nbytes = (q3.numel() + 2 * N * 4 + w.numel() + 2 * N * 4
                   + tab.numel() * 4 + 9 * N * 4)
         plane = Lq * -(-B // 4) * 4 * N
+        chosen = R1.layout(N, Lq, B, R1.sm_count(dev))
         run(f"R1 refine (N {N}, Lq {Lq}, band {B})",
             "ghostm_tpu_torch/csrc/refine.cu", "ghostm_tpu/engine.py:490",
             lambda: R1.refine_stats(q3, packed, mat, w, lo, hi, table=tab,
                                     table_max=tmax, **kw),
-            lambda: R1.refine_stats_plain(q3, packed, mat, w, lo, hi, **kw),
+            (lambda: want) if leg is None else
+            (lambda: R1.refine_stats_plain(q3, packed, mat, w, lo, hi,
+                                           **kw)),
             None, nbytes, 12 * N * Lq * B,
             "12 int32 ops per DP cell (the walk's steps not counted)",
-            reps=reps, launch=(leg, "refine", (N, Lq + B)), cells=N * Lq * B,
+            reps=reps, plain_reps=0 if leg is None else 3,
+            launch=leg and (leg, "refine", (N, Lq + B)), cells=N * Lq * B,
             device_ms=True, shape=[N, Lq, B], matrix=m, gaps=[go, ge],
-            moves_max_abs_err=moves_err, dp_device_ms=dp_ms,
+            moves_max_abs_err=moves_err, layout=layout_name(*chosen),
+            layouts=layouts,
+            dp_device_ms=layouts[layout_name(*chosen)]["dp_device_ms"],
             plane_bytes=plane,
             bound_with_plane_ms=bound(nbytes + plane, 12 * N * Lq * B)[0],
-            hits=int((got[8] > 0).sum()),
-            gapped=int((got[7] > 0).sum()))
-        del q3, packed, w, lo, hi, got
+            hits=int((want[8] > 0).sum()),
+            gapped=int((want[7] > 0).sum()))
+        del q3, packed, w, lo, hi, want
         torch.cuda.empty_cache()
     del flush
+
+
+# R1's layout sweep: (Lq, band, reads of 10 hits each)
+REFINE_SWEEP = ((40, 32, (256, 512, 768, 1024, 2048, 3072, 8192)),
+                (88, 32, (256, 512, 1024, 2048, 4096)),
+                (400, 32, (128, 512, 1024, 2048, 4096)),
+                (40, 64, (256, 1024, 2048, 4096, 8192)),
+                (300, 64, (128, 512, 1024, 2048, 4096)),
+                (1728, 64, (64, 128, 512, 1024, 2048)),
+                (3456, 128, (64, 256, 512)))
+
+
+def warm_up(dev, seconds: float = 0.5) -> None:
+    """Keep the card busy for a while, so that the first timings of a
+    process do not meet it at idle clocks."""
+    x = torch.empty(1 << 26, device=dev)
+    t0 = time.time()
+    while time.time() - t0 < seconds:
+        x.mul_(1.0)
+        torch.cuda.synchronize()
+
+
+def refine_sweep(dev) -> None:
+    """R1's two layouts across N, for the layout rule's thresholds: at
+    each (Lq, band, reads) of REFINE_SWEEP, hits made as refine_rows
+    makes them; the layouts' stats equal to each other (refine_rows holds
+    them against the plain version), each layout's device ms and the
+    layout the rule picks."""
+    from ghostm_tpu_torch.kernels import refine as R1
+    from ghostm_tpu_torch.ops.scoring import padded_matrix
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    mat = torch.from_numpy(padded_matrix("BLOSUM62", hard_stop=True).astype(
+        np.int32)).to(dev)
+    tab = R1.score_table(mat)
+    tmax = int(tab.max())
+    for Lq, B, reads in REFINE_SWEEP:
+        kw = dict(band=B, gap_open=11, gap_extend=1)
+        for R in reads:
+            q3, packed, w, lo, hi = refine_case(gen, R, 10, Lq, B, dev)
+            args = (q3, packed, w, lo, hi, tab)
+            outs = [R1.launch(*args, table_max=tmax, walk=True, lanes=a,
+                              **kw)[0] for a, _ in R1.layouts(Lq, B)]
+            if not all(torch.equal(outs[0], o) for o in outs[1:]):
+                raise SystemExit(f"R1 sweep N {R * 10}, Lq {Lq}: the "
+                                 "layouts differ")
+            times = {layout_name(*lay): time_ms(
+                lambda: R1.launch(*args, table_max=tmax, walk=True,
+                                  lanes=lay[0], **kw), 10, flush,
+                device_only=True) for lay in R1.layouts(Lq, B)}
+            emit(phase="refine_sweep", shape=[R * 10, Lq, B],
+                 chosen=layout_name(*R1.layout(R * 10, Lq, B,
+                                               R1.sm_count(dev))),
+                 device_ms=times)
+    del flush
+
+
+def time_refine(root: str) -> None:
+    """R1 of the tree at `root` (built from that tree's csrc/) at
+    REFINE_SHAPES, in the layout its wrapper picks: the device ms of a
+    launch and of its DP alone (walk=False). For comparing two trees on
+    one card, each in a process of its own (refine_rows holds each tree's
+    kernel against the plain version)."""
+    sys.path.insert(0, root)
+    from ghostm_tpu_torch.kernels import refine as R1
+    from ghostm_tpu_torch.ops.scoring import padded_matrix
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    warm_up(dev)
+    for leg, R, Lq, B, m, go, ge in REFINE_SHAPES:
+        mat = torch.from_numpy(padded_matrix(m, hard_stop=True).astype(
+            np.int32)).to(dev)
+        tab = R1.score_table(mat)
+        q3, packed, w, lo, hi = refine_case(gen, R, 10, Lq, B, dev)
+        kw = dict(band=B, gap_open=go, gap_extend=ge,
+                  table_max=int(tab.max()))
+        run = lambda walk: R1.launch(q3, packed, w, lo, hi, tab, walk=walk,
+                                     **kw)
+        reps = 5 if Lq > 100 else 20
+        emit(phase="time_refine", root=root, module=R1.__file__,
+             shape=[R * 10, Lq, B], smi=smi(),
+             device_ms=time_ms(lambda: run(True), reps, flush,
+                               device_only=True),
+             dp_device_ms=time_ms(lambda: run(False), reps, flush,
+                                  device_only=True))
+        del q3, packed, w, lo, hi
+        torch.cuda.empty_cache()
 
 
 def golden_phase(prefix: str, tag: str, flags, gold: str, need,
@@ -1800,6 +1942,10 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # the child of tail_phase
     ap.add_argument("--time-select-rank", metavar="ROOT",
                     help="only time B4's select rows with the port at ROOT")
+    ap.add_argument("--refine-rows", action="store_true",
+                    help="only the build, R1's rows and its layout sweep")
+    ap.add_argument("--time-refine", metavar="ROOT",
+                    help="only time R1 with the port at ROOT")
     args = ap.parse_args()
     if args.build_tail_index:
         sys.path.insert(0, ROOT)
@@ -1814,9 +1960,26 @@ def main() -> int:
         emit(phase="select_rank",
              **time_select_rank(os.path.abspath(args.time_select_rank)))
         return 0
+    if args.time_refine:
+        time_refine(os.path.abspath(args.time_refine))
+        return 0
     sys.path.insert(0, ROOT)
     from ghostm_tpu_torch.kernels import _build
 
+    if args.refine_rows:
+        card = smi()
+        dev = torch.device("cuda", 0)
+        emit(phase="device", name=torch.cuda.get_device_name(0), smi=card,
+             torch=torch.__version__, cuda=torch.version.cuda)
+        t0 = time.time()
+        log = _build.build_all()["refine"]
+        emit(phase="build", seconds=time.time() - t0,
+             ptxas={"refine": ptxas_lines(log)})
+        warm_up(dev)
+        refine_rows(dev, make_runner(dev, []))
+        refine_sweep(dev)
+        print(card)
+        return 0
     with tempfile.TemporaryDirectory() as tail_dir:
         tail = [None]   # the index build's child process, once started
         try:

@@ -7,9 +7,18 @@ scores, the subject-span mask, sw_xla.sw_banded_moves and
 sw_xla.traceback_stats_device inside the step's one device program; no
 Pallas kernel). The plain version runs those steps in torch: a loop of
 Lq rows of small launches, then a walk of up to 2 (Lq + band) + 4 steps.
-The kernel runs both in one launch: each alignment's DP on one thread
-(2 or 4 lanes of 32 diagonals at wider bands) writes a move byte per cell
-to a scratch plane in device memory, which lane 0 then walks back.
+The kernel runs both in one launch, in one of two layouts that `layout`
+picks from the hits an SM and Lq:
+  - the thread layout, for N that fills the card (the main path's short
+    frames): each alignment on 1, 2 or 4 lanes of 32 diagonals, one score
+    table in shared memory, DPX, moves to a word plane coalesced across
+    alignments, walked back by the group's lane 0;
+  - the warp layout, for few hits or long frames: an alignment on 32
+    lanes of 1, 2 or 4 diagonals, its codes staged in shared memory, E by
+    a scan over the lanes, moves to an alignment-major byte plane that
+    the walk copies back into shared memory a block of rows at a time.
+`launch` and `refine_moves` take a layout's lanes to force it (the card
+tests run every case in each).
 
 Contract: per hit n of N = R * K, query frame qcodes3[n // K,
 clamp(frame, 0, 5)], window w[n], cells with g0 + i + b outside
@@ -37,8 +46,11 @@ STAT_KEYS = ("qstart", "qend", "sstart", "send", "length", "matches",
 MAX_BAND = sw_scored.MAX_BAND   # csrc/refine.cu: up to 4 lanes of 32
 TCOLS = sw_scored.TCOLS         # the table's column 32: outside the span
 
+WARP_MAX_LQ = 65536   # csrc/refine.cu: the warp layout's longest query
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_SMS: dict = {}
 
 
 def score_table(matrix: torch.Tensor) -> torch.Tensor:
@@ -85,6 +97,47 @@ def refine_stats_plain(qcodes3, packed, matrix, w, lo, hi, *, band: int,
     return torch.stack([r.reshape(R, K) for r in rows])
 
 
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def group_lanes(band: int) -> int:
+    """The thread layout's lanes an alignment, 32 diagonals each (1, 2 or
+    4); also the warp layout's diagonals a lane."""
+    return 1 if band <= 32 else 2 if band <= 64 else 4
+
+
+def layouts(Lq: int, band: int) -> list:
+    """Every layout the kernel takes at this shape, as (lanes an
+    alignment, diagonals a lane): the thread layout, then the warp layout
+    up to WARP_MAX_LQ (its shared memory holds a query that long)."""
+    g = group_lanes(band)
+    return [(g, 32)] + ([(32, g)] if Lq <= WARP_MAX_LQ else [])
+
+
+def layout(N: int, Lq: int, band: int, sm_count: int):
+    """The layout the kernel runs in -> (lanes an alignment, diagonals a
+    lane): the thread layout once the hits an SM, N / sm_count, reach
+    56 + Lq / 5 (the main path's 81,920 hits at Lq 40 and 88: 621 an SM),
+    the warp layout below that (1,280 hits at 5 kbp: 1,280 warps where
+    the thread layout gives 80). The threshold follows where the two
+    layouts' device times cross on an H100 (chip_smoke.py --refine-rows's
+    sweep, PERF.md section 6): later at longer frames. Both cover the
+    band: lanes x diagonals >= band."""
+    opts = layouts(Lq, band)
+    if N >= (56 + Lq / 5) * sm_count or len(opts) == 1:
+        return opts[0]
+    return opts[1]
+
+
+def sm_count(dev: torch.device) -> int:
+    """The card's SM count (read once a device)."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(key).multi_processor_count
+    return _SMS[key]
+
+
 def check_args(qcodes3, packed, w, lo, hi, band: int, gap_open: int,
                gap_extend: int, table, table_max: int) -> None:
     """Raise ValueError for what the CUDA kernel does not take: a band
@@ -125,11 +178,14 @@ def check_args(qcodes3, packed, w, lo, hi, band: int, gap_open: int,
 
 
 def launch(qcodes3, packed, w, lo, hi, table, *, band: int, gap_open: int,
-           gap_extend: int, table_max: Optional[int], walk: bool):
+           gap_extend: int, table_max: Optional[int], walk: bool,
+           lanes: Optional[int] = None):
     """Check the inputs, then run csrc/refine.cu over every hit in one
     launch, counting it -> (out, plane): out (9, N) int32 when walk, else
-    (3, N) (score, i_end, b_end); plane the (Lq, ceil(band / 4), N)
-    int32 words of moves."""
+    (3, N) (score, i_end, b_end); plane the moves: in the thread layout
+    (Lq, ceil(band / 4), N) int32 words, in the warp layout (N, S) uint8,
+    S = Lq * round_up(band, 4) rounded up to 16. lanes: the layout's lanes
+    an alignment, one of `layouts` (None: `layout`'s choice)."""
     if table_max is None:
         table_max = int(table.max())
     check_args(qcodes3, packed, w, lo, hi, band, gap_open, gap_extend,
@@ -138,20 +194,29 @@ def launch(qcodes3, packed, w, lo, hi, table, *, band: int, gap_open: int,
     K = packed.shape[2]
     N = R * K
     dev = qcodes3.device
+    if lanes is None:
+        lanes = layout(N, Lq, band, sm_count(dev))[0]
+    if lanes not in [a for a, _ in layouts(Lq, band)]:
+        raise ValueError(f"refine: no layout of {lanes} lanes at Lq {Lq}, "
+                         f"band {band}; have {layouts(Lq, band)}")
     out = torch.empty((9 if walk else 3, N), dtype=torch.int32, device=dev)
-    plane = torch.empty((Lq, -(-band // 4), N), dtype=torch.int32,
-                        device=dev)
+    if lanes == 32:
+        plane = torch.empty((N, _align16(Lq * (-(-band // 4) * 4))),
+                            dtype=torch.uint8, device=dev)
+    else:
+        plane = torch.empty((Lq, -(-band // 4), N), dtype=torch.int32,
+                            device=dev)
     if N == 0:
         return out, plane
     fn = _build.load("refine").ghostm_refine
     fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
-                   _I, _P, _P]
+                   _I, _I, _P, _P]
     fn.restype = _I
     _build.check(fn(
         qcodes3.data_ptr(), packed.data_ptr(), w.data_ptr(), lo.data_ptr(),
         hi.data_ptr(), table.data_ptr(), N, K, Lq, w.shape[1], band,
-        gap_open, gap_extend, plane.data_ptr(), int(walk), out.data_ptr(),
-        _build.stream_ptr(dev),
+        gap_open, gap_extend, plane.data_ptr(), int(walk), lanes,
+        out.data_ptr(), _build.stream_ptr(dev),
     ), "refine")
     _build.count("refine", w.shape)
     return out, plane
@@ -185,13 +250,22 @@ def refine_stats(qcodes3: torch.Tensor, packed: torch.Tensor,
 
 
 def refine_moves(qcodes3, packed, w, lo, hi, table, *, band: int,
-                 gap_open: int, gap_extend: int):
+                 gap_open: int, gap_extend: int,
+                 lanes: Optional[int] = None):
     """The kernel's debug entry: the DP alone, no walk -> (score, i_end,
     b_end, moves) as sw_xla.sw_banded_moves returns them, moves the
-    (N, Lq, band) uint8 plane the kernel wrote. CUDA tensors only."""
+    (N, Lq, band) uint8 plane the kernel wrote, whatever its layout
+    (lanes: as launch takes it). CUDA tensors only."""
     out, plane = launch(qcodes3, packed, w, lo, hi, table, band=band,
                         gap_open=gap_open, gap_extend=gap_extend,
-                        table_max=None, walk=False)
-    Lq, wpr, N = plane.shape
-    moves = plane.view(torch.uint8).view(Lq, wpr, N, 4).permute(2, 0, 1, 3)
-    return out[0], out[1], out[2], moves.reshape(N, Lq, wpr * 4)[:, :, :band]
+                        table_max=None, walk=False, lanes=lanes)
+    Lq = qcodes3.shape[2]
+    bp = -(-band // 4) * 4
+    if plane.dtype == torch.uint8:   # the warp layout: (N, S) bytes
+        N = plane.shape[0]
+        moves = plane[:, :Lq * bp].reshape(N, Lq, bp)
+    else:
+        _, wpr, N = plane.shape
+        moves = plane.view(torch.uint8).view(Lq, wpr, N, 4).permute(
+            2, 0, 1, 3).reshape(N, Lq, bp)
+    return out[0], out[1], out[2], moves[:, :, :band]

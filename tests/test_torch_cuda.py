@@ -777,7 +777,9 @@ def _refine_inputs(dev, R, K, lq, band, cfg):
 # the CPU test's shapes and configurations (tests/test_torch_refine.py),
 # bands that leave a lane part-filled or empty, one hit, and the main
 # path's shapes: 8192 reads x 10 hits at Lq 40 and 88 (100 and 250 bp
-# reads), 128 x 10 at Lq 1728 band 64 (5 kbp), 8 x 8 at Lq 3456 band 128
+# reads), 128 x 10 at Lq 1728 band 64 (5 kbp), 8 x 8 and 64 x 10 at Lq
+# 3456 band 128 (10 kbp); bands 80 and 96 at long frames (the warp
+# layout's lanes past the band)
 REFINE_CASES = [
     *((2, 8, lq, band, "b62") for lq, band in (
         (40, 32), (88, 32), (24, 16), (60, 64), (50, 128))),
@@ -788,7 +790,14 @@ REFINE_CASES = [
     (3, 7, 41, 96, "open0"), (5, 9, 40, 18, "ext0"), (1, 1, 40, 32, "b62"),
     (8192, 10, 40, 32, "b62"), (8192, 10, 88, 32, "b50"),
     (128, 10, 1728, 64, "b62"), (8, 8, 3456, 128, "b62"),
+    (64, 10, 3456, 128, "b62"), (16, 10, 700, 80, "b50"),
+    (16, 10, 901, 96, "ext0"),
 ]
+# the cases whose move plane is compared (the plain plane is N x Lq x band
+# int32 tiles), and two of the main path's
+REFINE_PLANE_CASES = [
+    c for c in REFINE_CASES if c[0] * c[1] * c[2] * c[3] < 1 << 24
+] + [(8192, 10, 40, 32, "b62"), (128, 10, 1728, 64, "b62")]
 
 
 @pytest.mark.parametrize("R,K,lq,band,cfg", REFINE_CASES)
@@ -809,9 +818,7 @@ def test_refine_kernel(dev, R, K, lq, band, cfg):
     assert int(want[8].max()) > 0
 
 
-@pytest.mark.parametrize("R,K,lq,band,cfg", [
-    c for c in REFINE_CASES if c[0] * c[1] * c[2] * c[3] < 1 << 24
-] + [(8192, 10, 40, 32, "b62"), (128, 10, 1728, 64, "b62")])
+@pytest.mark.parametrize("R,K,lq,band,cfg", REFINE_PLANE_CASES)
 def test_refine_kernel_moves_plane(dev, R, K, lq, band, cfg):
     """The kernel's debug entry (the DP alone, no walk): its move plane
     equals sw_xla.sw_banded_moves' on every cell, and (score, i_end,
@@ -822,6 +829,35 @@ def test_refine_kernel_moves_plane(dev, R, K, lq, band, cfg):
         q3, packed, w, lo, hi, refine.score_table(mat), **kw))
     for g, x in zip(got, want):
         assert g.shape == x.shape and torch.equal(g.to(x.dtype), x)
+
+
+@pytest.mark.parametrize("R,K,lq,band,cfg", REFINE_CASES)
+def test_refine_kernel_layouts(dev, R, K, lq, band, cfg):
+    """Kernel R1 in every layout it takes at the case's shape (the thread
+    layout and the warp layout, forced through launch, whichever the rule
+    would pick): all 9 rows equal to the plain version's, and on
+    REFINE_PLANE_CASES the debug entry's move plane too, one launch each."""
+    q3, packed, w, lo, hi, mat, kw = _refine_inputs(dev, R, K, lq, band, cfg)
+    want = refine.refine_stats_plain(q3, packed, mat, w, lo, hi, **kw)
+    tab = refine.score_table(mat)
+    args = (q3, packed, w, lo, hi, tab)
+    plane = (R, K, lq, band, cfg) in REFINE_PLANE_CASES
+    want_moves = refine.moves_plain(q3, packed, mat, w, lo, hi, **kw) \
+        if plane else ()
+    opts = refine.layouts(lq, band)
+    assert len(opts) == 2 and refine.layout(
+        R * K, lq, band, refine.sm_count(q3.device)) in opts
+    for lanes, diags in opts:
+        got = _launched("refine", lambda: refine.launch(
+            *args, table_max=int(tab.max()), walk=True, lanes=lanes,
+            **kw)[0])
+        assert torch.equal(got.view(want.shape), want), (lanes, diags)
+        if plane:
+            moves = _launched("refine", lambda: refine.refine_moves(
+                *args, lanes=lanes, **kw))
+            for g, x in zip(moves, want_moves):
+                assert g.shape == x.shape and torch.equal(g.to(x.dtype), x)
+    assert int(want[8].max()) > 0
 
 
 def test_refine_never_plain_on_cuda(dev, tmp_path, monkeypatch):

@@ -4,7 +4,10 @@ the CPU), and the engine's entry against the wrapper. Tolerance 0: every
 output is an int32.
 
 The kernel itself runs only on the card: tests/test_torch_cuda.py holds it
-against this plain version (-k refine there)."""
+against this plain version (-k refine there). Here: its layout rule, and
+a numpy transcription of its arithmetic (tests/refine_transcript.py: the
+lane-split row step in each layout, the staged walk's blocks) against the
+plain version."""
 
 import numpy as np
 import pytest
@@ -19,6 +22,8 @@ from ghostm_tpu_torch.kernels import refine
 from ghostm_tpu_torch.ops.scoring import LOW
 
 from refine_cases import CONFIGS, make_case
+from refine_transcript import (byte_plane, lane_split_moves, staged_walk,
+                               window_codes)
 
 # One intra-op thread: the suite runs several pytest workers at once.
 torch.set_num_threads(1)
@@ -41,11 +46,14 @@ def _plain(q3, packed, mat, w, lo, hi, band, go, ge):
         gap_open=go, gap_extend=ge).numpy()
 
 
-@pytest.mark.parametrize("lq,band,cfg", [
+CASES = [
     *((lq, band, "b62") for lq, band in SHAPES),
     *((lq, band, c) for c in ("b50", "pam30", "open0", "ext0")
       for lq, band in ((40, 32), (60, 64))),
-])
+]
+
+
+@pytest.mark.parametrize("lq,band,cfg", CASES)
 def test_refine_plain_matches_jax(lq, band, cfg):
     """Every hit kind of refine_cases.make_case (related, gapped, unrelated,
     cut and empty spans, ties, g0 + i + b wrapping) at each listed shape
@@ -154,3 +162,91 @@ def test_kernel_args_check_passes():
     for band in (1, 16, 32, 48, 64, 128):
         q3, packed, w, lo, hi, tab = _args(band=band)
         refine.check_args(q3, packed, w, lo, hi, band, 11, 1, tab, 11)
+
+
+@pytest.mark.parametrize("lq,band,cfg", CASES)
+def test_refine_transcript_matches_plain(lq, band, cfg):
+    """The kernel's arithmetic, transcribed: the lane-split row step in
+    every layout the kernel takes at the shape (the thread layout's 1-4
+    lanes of 32 diagonals, the warp layout's 32 lanes of 1-4; the edge
+    rules: f_open at b = B - 1, e_open at b = 0, NEG from above at the
+    band's last diagonal, lanes past the band) gives moves_plain's score,
+    i_end, b_end and move plane; the staged walk over the byte plane, in
+    the kernel's blocks and in blocks of 4 rows, gives
+    refine_stats_plain's stats. Exact."""
+    name, go, ge = CONFIGS[cfg]
+    mat = padded_matrix(name, hard_stop=True).astype(np.int32)
+    R, K = (2, 8) if lq < 200 else (1, 8)
+    q3, packed, w, lo, hi = make_case(lq * 1000 + band, R, K, lq, band)
+    t = torch.from_numpy
+    args = (t(q3), t(packed), t(mat), t(w), t(lo), t(hi))
+    kw = dict(band=band, gap_open=go, gap_extend=ge)
+    want = [x.numpy() for x in refine.moves_plain(*args, **kw)]
+    stats = refine.refine_stats_plain(*args, **kw).numpy().reshape(9, -1)
+    qc = refine.query_codes(t(q3), t(packed)).numpy()
+    table = refine.score_table(t(mat)).numpy().astype(np.int64)
+    g0 = packed[6].reshape(-1)
+    opts = refine.layouts(lq, band)
+    assert [a for a, _ in opts] == [refine.group_lanes(band), 32]
+    for lanes, diags in opts:
+        codes = window_codes(w, g0, lo, hi, lq + lanes * diags)
+        got = lane_split_moves(qc.astype(np.int64), codes, table, band, go,
+                               ge, lanes, diags)
+        for g, x in zip(got, want):
+            np.testing.assert_array_equal(g, x, err_msg=f"{lanes} lanes")
+    np.testing.assert_array_equal(got[0], stats[8])
+    plane = byte_plane(got[3])
+    for rows in (None, 4):   # the kernel's block rows, and 4
+        walked = staged_walk(plane, got[1], got[2], qc, w, lq, band, rows)
+        np.testing.assert_array_equal(walked, stats[:8], err_msg=str(rows))
+
+
+@pytest.mark.parametrize("N,lq,band,want", [
+    (81_920, 40, 32, (1, 32)),      # scale, scale_b50
+    (81_920, 88, 32, (1, 32)),      # scale_b50_250bp
+    (40_960, 40, 32, (1, 32)),      # a rank of mesh_scale_2x1
+    (8_448, 40, 32, (1, 32)),       # 64 hits an SM: the thread layout
+    (8_447, 40, 32, (32, 1)),
+    (17_952, 400, 32, (1, 32)),     # 136 an SM at Lq 400
+    (17_951, 400, 32, (32, 1)),
+    (1_280, 1728, 64, (32, 2)),     # longread_5kbp
+    (640, 3456, 128, (32, 4)),      # 10 kbp
+    (81_920, 40, 128, (4, 32)),
+    (1_280, 40, 32, (32, 1)),       # the config-1 golden's batch
+    (120, 1728, 64, (32, 2)),       # the long-read golden's
+    (1, 40, 1, (32, 1)),
+    (1, 40, 128, (32, 4)),
+    (1, 65_536, 128, (32, 4)),
+    (1, 80_000, 64, (2, 32)),       # past the warp layout's longest query
+])
+def test_layout_rule(N, lq, band, want):
+    """refine.layout on a 132-SM card: the thread layout once the hits an
+    SM reach 56 + Lq / 5 (the main path's short frames), the warp layout
+    below (long frames, few hits), the thread layout past the warp
+    layout's longest query."""
+    assert refine.layout(N, lq, band, 132) == want
+
+
+def test_layouts_cover_the_band():
+    """Every layout the kernel takes, at every band, covers the band with
+    lanes of a power of two up to 32, and the rule picks one of them."""
+    for band in range(1, refine.MAX_BAND + 1):
+        for lq in (1, 40, 1728, 3456):
+            opts = refine.layouts(lq, band)
+            assert len(opts) == 2
+            for lanes, diags in opts:
+                assert lanes * diags >= band and lanes * diags < 2 * band + 32
+                assert lanes in (1, 2, 4, 32) and diags in (1, 2, 4, 32)
+            for N in (1, 1_000, 100_000):
+                assert refine.layout(N, lq, band, 132) in opts
+    assert refine.layouts(refine.WARP_MAX_LQ, 128)[1] == (32, 4)
+    assert refine.layouts(refine.WARP_MAX_LQ + 1, 1) == [(1, 32)]
+
+
+def test_launch_refuses_a_layout():
+    """A lane count no layout has is refused before any launch."""
+    q3, packed, w, lo, hi, tab = _args()
+    for lanes in (2, 8, 16, 64):
+        with pytest.raises(ValueError, match="no layout"):
+            refine.launch(q3, packed, w, lo, hi, tab, band=16, gap_open=11,
+                          gap_extend=1, table_max=11, walk=True, lanes=lanes)
