@@ -88,6 +88,7 @@ from ghostm_tpu_torch.ops.scoring import padded_matrix
 from ghostm_tpu_torch.ops.translate import (
     six_frame_translate, six_frame_translate_torch,
 )
+from ghostm_tpu_torch.utils.metrics import span
 
 NFRAMES = 6
 BIG = 1 << 30
@@ -941,11 +942,14 @@ class SearchEngine:
         bounds asserts and NaN checks of search_batch_checked."""
         R = qcodes3.shape[0]
         qflat = qcodes3.reshape(R * NFRAMES, self.cfg.query_frame_len)
-        sel_g, sel_b = self.propose(qflat, check=check)
-        aligned = self.align(qflat, sel_g, sel_b)
-        _check_nans("align", *aligned, check=check)
-        packed = merge_rank(aligned, sel_g, R, self.cfg.max_hits)
-        _check_nans("rank", packed, check=check)
+        with span("step.propose"):
+            sel_g, sel_b = self.propose(qflat, check=check)
+        with span("step.align"):
+            aligned = self.align(qflat, sel_g, sel_b)
+            _check_nans("align", *aligned, check=check)
+        with span("step.rank"):
+            packed = merge_rank(aligned, sel_g, R, self.cfg.max_hits)
+            _check_nans("rank", packed, check=check)
         return packed
 
     def translate(self, dna: np.ndarray, lens: np.ndarray) -> np.ndarray:
@@ -982,33 +986,34 @@ class SearchEngine:
         end come from the shard in its shard field: on a grid rank, the
         rank fetches those of the hits its shard owns and one all_reduce
         over "db" assembles them (parallel.search.gather_windows)."""
-        cfg = self.cfg
-        g0 = packed[6].reshape(-1)
-        srow = packed[7].reshape(-1)
-        shard = packed[8].reshape(-1)
-        wlen = cfg.query_frame_len + cfg.band_width
-        if self.mesh is not None:
-            from ghostm_tpu_torch.parallel.search import gather_windows
+        with span("step.refine"):
+            cfg = self.cfg
+            g0 = packed[6].reshape(-1)
+            srow = packed[7].reshape(-1)
+            shard = packed[8].reshape(-1)
+            wlen = cfg.query_frame_len + cfg.band_width
+            if self.mesh is not None:
+                from ghostm_tpu_torch.parallel.search import gather_windows
 
-            w, lo, hi = gather_windows(self, g0, srow, shard, wlen)
-        else:
-            for si, d in enumerate(self.shard_dev):
-                w2, lo2, hi2 = self.windows_of(d, g0, srow, wlen)
-                if si == 0:
-                    w, lo, hi = w2, lo2, hi2
-                else:
-                    m = shard == si
-                    w = torch.where(m[:, None], w2, w)
-                    lo = torch.where(m, lo2, lo)
-                    hi = torch.where(m, hi2, hi)
-        # the kernel takes int8 windows (a grid rank's arrive as int32
-        # slices of the all_reduce rows) and contiguous spans
-        return refine_stats_packed(
-            qcodes3, packed, self.matrix, w.to(torch.int8).contiguous(),
-            lo.contiguous(), hi.contiguous(), band=cfg.band_width,
-            gap_open=cfg.gap_open, gap_extend=cfg.gap_extend,
-            table=self.refine_table, table_max=self.refine_table_max,
-        )
+                w, lo, hi = gather_windows(self, g0, srow, shard, wlen)
+            else:
+                for si, d in enumerate(self.shard_dev):
+                    w2, lo2, hi2 = self.windows_of(d, g0, srow, wlen)
+                    if si == 0:
+                        w, lo, hi = w2, lo2, hi2
+                    else:
+                        m = shard == si
+                        w = torch.where(m[:, None], w2, w)
+                        lo = torch.where(m, lo2, lo)
+                        hi = torch.where(m, hi2, hi)
+            # the kernel takes int8 windows (a grid rank's arrive as int32
+            # slices of the all_reduce rows) and contiguous spans
+            return refine_stats_packed(
+                qcodes3, packed, self.matrix, w.to(torch.int8).contiguous(),
+                lo.contiguous(), hi.contiguous(), band=cfg.band_width,
+                gap_open=cfg.gap_open, gap_extend=cfg.gap_extend,
+                table=self.refine_table, table_max=self.refine_table_max,
+            )
 
     def step_dna(self, dna: torch.Tensor, lens: torch.Tensor,
                  pack: bool = True) -> torch.Tensor:
@@ -1016,13 +1021,17 @@ class SearchEngine:
         refine -> (6, R, K) packed transport (or the (18, R, K) payload
         when the transport cannot hold this config's value ranges, or
         when pack is False)."""
-        qcodes3 = six_frame_translate_torch(dna, lens, self.cfg.query_frame_len)
-        _check_nans("translate", qcodes3)
+        with span("step.translate"):
+            qcodes3 = six_frame_translate_torch(dna, lens,
+                                                self.cfg.query_frame_len)
+            _check_nans("translate", qcodes3)
         packed = self.search_packed(qcodes3)
         stats = self.refine_packed(qcodes3, packed)
         _check_nans("refine", stats)
-        out = torch.cat([packed, stats])
-        return self._pack_transport(out) if pack and self._pack_ok else out
+        with span("step.pack"):
+            out = torch.cat([packed, stats])
+            return (self._pack_transport(out) if pack and self._pack_ok
+                    else out)
 
     def search_refine_async_dna(self, dna: np.ndarray,
                                 lens: np.ndarray) -> torch.Tensor:
@@ -1037,15 +1046,17 @@ class SearchEngine:
         self._no_mesh("search_refine_async_dna")
         R = dna.shape[0]
         Rb = self.cfg.query_batch
-        if R < Rb:
-            dna = np.concatenate(
-                [dna, np.full((Rb - R,) + dna.shape[1:], 4, dna.dtype)]
-            )
-            lens = np.concatenate([lens, np.zeros(Rb - R, lens.dtype)])
-        out = self.step_dna(
-            torch.from_numpy(np.ascontiguousarray(dna)).to(self.device),
-            torch.from_numpy(np.asarray(lens, np.int32)).to(self.device),
-        )
+        with span("step.h2d"):
+            if R < Rb:
+                dna = np.concatenate(
+                    [dna, np.full((Rb - R,) + dna.shape[1:], 4, dna.dtype)]
+                )
+                lens = np.concatenate([lens, np.zeros(Rb - R, lens.dtype)])
+            dna_d = torch.from_numpy(np.ascontiguousarray(dna)).to(
+                self.device)
+            lens_d = torch.from_numpy(np.asarray(lens, np.int32)).to(
+                self.device)
+        out = self.step_dna(dna_d, lens_d)
         return out[:, :R] if R < Rb else out
 
     # ------------------------------------------------------------------

@@ -21,8 +21,9 @@ Debug and observability hooks, as in the JAX package:
   * cfg.check (CLI --check): each batch is also translated on the host and
     run through SearchEngine.search_batch_checked before its step;
   * cfg.profile_dir (CLI --profile DIR): torch.profiler (CPU activity, and
-    CUDA on a CUDA engine) around the batch loop; the Chrome trace goes to
-    DIR/trace.json;
+    CUDA on a CUDA engine; every thread) around the batch loop; the Chrome
+    trace goes to DIR/trace.json. The program's spans (utils.metrics.span,
+    "ghostm.*") name the loop's, the step's and the flush's parts in it;
   * GHOSTM_TPU_HBM_LOG=FILE: device memory sampled after each batch's
     flush; at exit FILE holds the maxima as JSON (bytes_in_use,
     peak_bytes_in_use, largest_alloc_size, bytes_limit). A CPU engine has
@@ -61,11 +62,10 @@ import torch.distributed as dist
 
 from ghostm_tpu_torch import native
 from ghostm_tpu_torch.report import M8_HEADER, SubjectNames, write_hits
-from ghostm_tpu_torch.utils.metrics import BatchMetrics, MetricsLog
+from ghostm_tpu_torch.utils.metrics import BatchMetrics, MetricsLog, span
 
 log = logging.getLogger("ghostm_tpu_torch.pipeline")
 
-NFRAMES = 6
 HBM_KEYS = ("bytes_in_use", "peak_bytes_in_use", "largest_alloc_size",
             "bytes_limit")
 
@@ -101,12 +101,22 @@ def _profiled(engine, profile_dir: Optional[str]):
     if not profile_dir:
         yield
         return
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if engine.device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
+    try:
+        # the flush thread's spans too: by default the profiler records
+        # only the thread that starts it
+        extra = dict(experimental_config=_ExperimentalConfig(
+            profile_all_threads=True))
+    except TypeError:
+        log.warning("this torch's profiler records only the main thread: "
+                    "the flush thread's spans are not in the trace")
+        extra = {}
+    with profile(activities=acts, **extra) as prof:
         yield
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, "trace.json")
@@ -122,6 +132,18 @@ def _read_cursor(path: str) -> int:
             return int(json.load(f)["completed_batches"])
     except (FileNotFoundError, ValueError, KeyError):
         return 0
+
+
+def _spanned(batches: Iterable):
+    """The batches, each pulled from the caller's iterator (for `aln`, the
+    FASTA reader) inside a "loop.next" span."""
+    it = iter(batches)
+    while True:
+        with span("loop.next"):
+            item = next(it, None)
+        if item is None:
+            return
+        yield item
 
 
 def run_search(engine, batches: Iterable, output: str,
@@ -193,44 +215,56 @@ def run_search(engine, batches: Iterable, output: str,
 
     def _flush(p):
         nonlocal total_rows
-        bi, names, lens, R, payload, t0 = p
+        bi, names, lens, payload, t0, counts = p
         t1 = time.perf_counter()
-        # [(first row, hits, stats)]: the loop's one block, a grid's
-        # blocks this process writes (none on a one-run grid's rank > 0)
-        blocks = (payload if mesh is not None else
-                  [(0, *engine.unpack_results(engine.fetch(payload)))])
-        split = dict(fetch_s=time.perf_counter() - t1)
-        rows = 0
-        for st0, hits, stats in blocks:
-            n = hits.score.shape[0]
-            nm, ln = names[st0:st0 + n], lens[st0:st0 + n]
-            if checkpointing:
-                part = (f"part-{bi:06d}-r{st0:08d}.tsv" if multiproc
-                        else f"part-{bi:06d}.tsv")
-                rows += _write_part(os.path.join(parts_dir, part), nm, ln,
-                                    hits, stats, split)
+        with span("flush", bi):
+            # [(first row, hits, stats)]: the loop's one block, a grid's
+            # blocks this process writes (none on a one-run grid's rank > 0)
+            if mesh is not None:
+                blocks = payload
             else:
-                rows += write_hits(
-                    out_f, cfg, nm, ln, snames, hits, stats,
-                    engine.index.total_residues, db_seqs, timing=split,
+                with span("flush.fetch"):
+                    arr = engine.fetch(payload)
+                with span("flush.unpack"):
+                    blocks = [(0, *engine.unpack_results(arr))]
+            split = dict(fetch_s=time.perf_counter() - t1)
+            rows = 0
+            for st0, hits, stats in blocks:
+                n = hits.score.shape[0]
+                nm, ln = names[st0:st0 + n], lens[st0:st0 + n]
+                if checkpointing:
+                    part = (f"part-{bi:06d}-r{st0:08d}.tsv" if multiproc
+                            else f"part-{bi:06d}.tsv")
+                    rows += _write_part(os.path.join(parts_dir, part), nm,
+                                        ln, hits, stats, split)
+                else:
+                    rows += write_hits(
+                        out_f, cfg, nm, ln, snames, hits, stats,
+                        engine.index.total_residues, db_seqs, timing=split,
+                    )
+            with span("flush.record"):
+                if checkpointing and writer:
+                    with open(cursor_path, "w") as f:
+                        json.dump({"completed_batches": bi + 1}, f)
+                if hbm_peak is not None:
+                    for k, v in device_memory(engine.device).items():
+                        hbm_peak[k] = max(hbm_peak.get(k, 0), int(v))
+                t_end = time.perf_counter()
+                m = BatchMetrics(
+                    reads=len(names), wall_s=t_end - t0, hits=rows,
+                    queue_s=t1 - t0 - counts["step_s"], **counts, **split)
+                metrics.add(m, t0, t_end)
+                log.info(
+                    "batch %d: %d reads, %d rows, wall %.1f ms: step %.1f "
+                    "(cpu %.1f), wait %.1f, queue %.1f, fetch %.1f, columns "
+                    "%.1f (e-values %.1f), format %.1f (names %.1f), write "
+                    "%.1f", bi, len(names), rows,
+                    *(1e3 * getattr(m, k) for k in (
+                        "wall_s", "step_s", "step_cpu_s", "wait_s",
+                        "queue_s", "fetch_s", "columns_s", "evalue_s",
+                        "format_s", "names_s", "write_s")),
+                    extra={"metrics": vars(m)},
                 )
-        if checkpointing and writer:
-            with open(cursor_path, "w") as f:
-                json.dump({"completed_batches": bi + 1}, f)
-        if hbm_peak is not None:
-            for k, v in device_memory(engine.device).items():
-                hbm_peak[k] = max(hbm_peak.get(k, 0), int(v))
-        wall = time.time() - t0
-        cells = R * NFRAMES * cfg.candidates_per_frame \
-            * cfg.query_frame_len * cfg.band_width
-        m = BatchMetrics(len(names), wall, cells * engine.n_shards, rows,
-                         **split)
-        metrics.add(m)
-        log.info(
-            "batch %d: %d reads, %d rows, %.2fs (%.0f reads/s, %.2f GCUPS)",
-            bi, len(names), rows, wall, m.reads_per_s, m.gcups,
-            extra={"metrics": vars(m)},
-        )
         total_rows += rows
 
     def _launch(dna, lens):
@@ -248,7 +282,16 @@ def run_search(engine, batches: Iterable, output: str,
         hits, stats = engine.search_batch_stats(qcodes)
         return [(0, hits, stats)] if writer else []
 
-    pending = None  # (bi, names, lens, R, payload, t0)
+    def _wait(f) -> float:
+        """The main thread's block on a flush's future (its errors
+        propagate); returns its seconds."""
+        t = time.perf_counter()
+        with span("loop.wait"):
+            f.result()
+        return time.perf_counter() - t
+
+    # (bi, names, lens, payload, launch time, {step_s, step_cpu_s, wait_s})
+    pending = None
     flusher = None if sync else ThreadPoolExecutor(1)
     fut = None
     try:
@@ -256,21 +299,27 @@ def run_search(engine, batches: Iterable, output: str,
             if writer and not checkpointing:
                 out_f = open(output, "w")
                 out_f.write(M8_HEADER + "\n")
-            for bi, (names, dna, lens) in enumerate(batches):
+            for bi, (names, dna, lens) in enumerate(_spanned(batches)):
                 if checkpointing and bi < done:
                     continue
-                t0 = time.time()
-                payload = _launch(dna, lens)
+                t0 = time.perf_counter()
+                cpu0 = time.thread_time()
+                with span("step", bi):
+                    payload = _launch(dna, lens)
+                counts = dict(step_s=time.perf_counter() - t0,
+                              step_cpu_s=time.thread_time() - cpu0,
+                              wait_s=0.0)
                 if pending is not None:
                     if fut is not None:
-                        fut.result()   # propagate errors, bound the queue
+                        # bound the queue: one flush in flight
+                        pending[-1]["wait_s"] = _wait(fut)
                     fut = flusher.submit(_flush, pending)
-                pending = (bi, names, lens, dna.shape[0], payload, t0)
+                pending = (bi, names, lens, payload, t0, counts)
                 if sync:
                     _flush(pending)
                     pending = None
             if fut is not None:
-                fut.result()
+                pending[-1]["wait_s"] = _wait(fut)
                 fut = None
             if pending is not None:
                 _flush(pending)

@@ -22,6 +22,7 @@ import numpy as np
 from ghostm_tpu_torch import native
 from ghostm_tpu_torch.config import Config
 from ghostm_tpu_torch.ops import evalue as ev
+from ghostm_tpu_torch.utils.metrics import span
 
 M8_HEADER = (
     "qseqid\tsseqid\tpident\tlength\tmismatch\tgapopen\t"
@@ -188,74 +189,84 @@ def write_hits(
     when the host library is built); a plain dict, or no library, takes
     the Python loop. Both write the same bytes. timing: when given, the
     seconds of the vectorised columns, the formatting and the write are
-    added to its "columns_s", "format_s" and "write_s".
+    added to its "columns_s", "format_s" and "write_s", and those of the
+    e-values (inside the columns) and of the read-name arena (inside the
+    formatting) to "evalue_s" and "names_s".
     """
     t0 = time.perf_counter()
     R, K = hits.score.shape
     nR = min(R, len(read_names))
     lam, kk, kh = cfg.ka_params()
-    # Vectorised column computation + filter; the Python loop below only
-    # formats the few surviving rows (the per-(r,k) loop with 1-element
-    # numpy calls cost ~0.45 s per 4096-read batch — ~50x this path).
-    # All float math is float64 in the same expression order as the old
-    # per-row code, so the formatted text is identical.
-    sc = hits.score[:nR].astype(np.int64)
-    qlen_aa = np.maximum(read_lens[:nR].astype(np.int64) // 3, 1)
-    # BLAST effective-length correction when H and the sequence count are
-    # known (ops/evalue.py); plain K*m*n search space otherwise.
-    e = ev.e_value(
-        sc.reshape(-1), np.repeat(qlen_aa, K), db_residues, lam, kk,
-        h=kh, db_seqs=db_seqs,
-    ).reshape(nR, K)
-    keep = (sc > 0) & (e <= cfg.evalue_cutoff)
-    r_idx, k_idx = np.nonzero(keep)
-    if r_idx.size == 0:
-        _add(timing, "columns_s", t0)
-        return 0
-    span = stats["send"][:nR] - stats["sstart"][:nR]
-    s_end_sub = hits.s_end[:nR].astype(np.int64) + 1    # 1-based inclusive
-    s_start_sub = s_end_sub - span
-    qs_dna, qe_dna = frame_to_dna_coords(
-        hits.frame[:nR].reshape(-1),
-        stats["qstart"][:nR].reshape(-1),
-        stats["qend"][:nR].reshape(-1),
-        np.repeat(read_lens[:nR], K),
-    )
-    qs_dna = qs_dna.reshape(nR, K)
-    qe_dna = qe_dna.reshape(nR, K)
-    length = stats["length"][:nR]
-    matches = stats["matches"][:nR]
-    pident = 100.0 * matches / np.maximum(length, 1)
-    bits = ev.bit_score(sc.reshape(-1), lam, kk).reshape(nR, K)
-    mismatch = stats["mismatch"][:nR]
-    gapopen = stats["gapopen"][:nR]
-    gsid = hits.gsid[:nR]
-    t1 = _add(timing, "columns_s", t0)
-    text = None
-    if isinstance(subject_names, SubjectNames):
-        sarena, soff = subject_names.arena()
-        qarena, qoff = _name_arena(read_names)
-        pick = lambda a: np.asarray(a)[r_idx, k_idx]
-        text = native.m8_format(
-            r_idx, qarena, qoff, pick(gsid), sarena, soff,
-            pick(pident), pick(length), pick(mismatch), pick(gapopen),
-            pick(qs_dna), pick(qe_dna), pick(s_start_sub),
-            pick(s_end_sub), pick(e), pick(bits),
+    with span("flush.columns"):
+        # Vectorised column computation + filter; the Python loop below
+        # only formats the few surviving rows. All float math is float64
+        # in the same expression order as a per-row loop's, so the
+        # formatted text is identical.
+        sc = hits.score[:nR].astype(np.int64)
+        qlen_aa = np.maximum(read_lens[:nR].astype(np.int64) // 3, 1)
+        # BLAST effective-length correction when H and the sequence count
+        # are known (ops/evalue.py); plain K*m*n search space otherwise.
+        with span("flush.evalue"):
+            te = time.perf_counter()
+            e = ev.e_value(
+                sc.reshape(-1), np.repeat(qlen_aa, K), db_residues, lam, kk,
+                h=kh, db_seqs=db_seqs,
+            ).reshape(nR, K)
+            _add(timing, "evalue_s", te)
+        keep = (sc > 0) & (e <= cfg.evalue_cutoff)
+        r_idx, k_idx = np.nonzero(keep)
+        if r_idx.size == 0:
+            _add(timing, "columns_s", t0)
+            return 0
+        span_len = stats["send"][:nR] - stats["sstart"][:nR]
+        s_end_sub = hits.s_end[:nR].astype(np.int64) + 1  # 1-based incl.
+        s_start_sub = s_end_sub - span_len
+        qs_dna, qe_dna = frame_to_dna_coords(
+            hits.frame[:nR].reshape(-1),
+            stats["qstart"][:nR].reshape(-1),
+            stats["qend"][:nR].reshape(-1),
+            np.repeat(read_lens[:nR], K),
         )
-    if text is not None:
-        text = text.decode()
-    else:
-        text = "".join([
-            f"{read_names[r]}\t{subject_names[int(gsid[r, k])]}\t"
-            f"{pident[r, k]:.2f}\t{length[r, k]}\t{mismatch[r, k]}\t"
-            f"{gapopen[r, k]}\t{qs_dna[r, k]}\t{qe_dna[r, k]}\t"
-            f"{s_start_sub[r, k]}\t{s_end_sub[r, k]}\t{e[r, k]:.2e}\t"
-            f"{bits[r, k]:.1f}\n"
-            for r, k in zip(r_idx.tolist(), k_idx.tolist())
-        ])
-    t2 = _add(timing, "format_s", t1)
-    out.write(text)
-    _add(timing, "write_s", t2)
+        qs_dna = qs_dna.reshape(nR, K)
+        qe_dna = qe_dna.reshape(nR, K)
+        length = stats["length"][:nR]
+        matches = stats["matches"][:nR]
+        pident = 100.0 * matches / np.maximum(length, 1)
+        bits = ev.bit_score(sc.reshape(-1), lam, kk).reshape(nR, K)
+        mismatch = stats["mismatch"][:nR]
+        gapopen = stats["gapopen"][:nR]
+        gsid = hits.gsid[:nR]
+        t1 = _add(timing, "columns_s", t0)
+    with span("flush.format"):
+        text = None
+        if isinstance(subject_names, SubjectNames):
+            sarena, soff = subject_names.arena()
+            with span("flush.names"):
+                tn = time.perf_counter()
+                qarena, qoff = _name_arena(read_names)
+                _add(timing, "names_s", tn)
+            pick = lambda a: np.asarray(a)[r_idx, k_idx]
+            text = native.m8_format(
+                r_idx, qarena, qoff, pick(gsid), sarena, soff,
+                pick(pident), pick(length), pick(mismatch), pick(gapopen),
+                pick(qs_dna), pick(qe_dna), pick(s_start_sub),
+                pick(s_end_sub), pick(e), pick(bits),
+            )
+        if text is not None:
+            text = text.decode()
+        else:
+            text = "".join([
+                f"{read_names[r]}\t{subject_names[int(gsid[r, k])]}\t"
+                f"{pident[r, k]:.2f}\t{length[r, k]}\t{mismatch[r, k]}\t"
+                f"{gapopen[r, k]}\t{qs_dna[r, k]}\t{qe_dna[r, k]}\t"
+                f"{s_start_sub[r, k]}\t{s_end_sub[r, k]}\t{e[r, k]:.2e}\t"
+                f"{bits[r, k]:.1f}\n"
+                for r, k in zip(r_idx.tolist(), k_idx.tolist())
+            ])
+        t2 = _add(timing, "format_s", t1)
+    with span("flush.write"):
+        out.write(text)
+        _add(timing, "write_s", t2)
     return len(r_idx)
 
 

@@ -219,7 +219,10 @@ def test_write_hits_native_equals_python_and_jax(lib):
                SubjectNames(d), BatchHits(*fields), stats, 10**6, 500,
                timing=timing)
     assert native.CALLS[("m8_format", "native")] == 1
-    assert set(timing) == {"columns_s", "format_s", "write_s"}
+    assert set(timing) == {"columns_s", "evalue_s", "format_s", "names_s",
+                           "write_s"}
+    assert timing["evalue_s"] <= timing["columns_s"]
+    assert timing["names_s"] <= timing["format_s"]
     assert rows[0] > 0 and len(set(rows)) == 1
     assert all(o == outs[0] for o in outs + [b.getvalue()])
 

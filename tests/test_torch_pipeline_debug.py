@@ -3,8 +3,10 @@
 --profile (torch.profiler's Chrome trace), GHOSTM_TPU_HBM_LOG on a CPU
 engine (no file, a log line saying why), --debug-nans, the CLI's flags
 (the debug flags, and the mesh and multi-process flags: run, or refused
-as the JAX CLI refuses them), and run_search's host split. The config-1
-golden is the expected table throughout (byte for byte)."""
+as the JAX CLI refuses them), run_search's host split and counters, the
+program's spans in a --profile trace (and no record_function entered
+without a profiler), and MetricsLog's window rate. The config-1 golden is
+the expected table throughout (byte for byte)."""
 
 import json
 import logging
@@ -22,7 +24,7 @@ from ghostm_tpu_torch.cli import main as tcli
 from ghostm_tpu_torch.config import Config
 from ghostm_tpu_torch.index.diskio import load_index
 from ghostm_tpu_torch.io.fasta import read_batches
-from ghostm_tpu_torch.utils.metrics import MetricsLog
+from ghostm_tpu_torch.utils.metrics import BatchMetrics, MetricsLog
 
 torch.set_num_threads(1)
 
@@ -146,6 +148,130 @@ def test_run_search_host_split(index, tmp_path):
         assert min(b.fetch_s, b.columns_s, b.format_s, b.write_s) > 0
     assert native.CALLS[("m8_format", "native")] == 4
     assert native.CALLS[("m8_format", "python")] == 0
+
+
+def test_run_search_counters(index, tmp_path):
+    """run_search fills the loop's counters on every batch: the main
+    loop's wait on the previous flush, the queue from the end of the step
+    to the flush, the step's wall and CPU seconds, and inside the
+    writer's columns and formatting the e-values and the read names."""
+    eng = tengine.SearchEngine(Config(query_batch=32), load_index(index),
+                               device="cpu")
+    m = MetricsLog()
+    out = str(tmp_path / "hits.tsv")
+    assert pipeline.run_search(eng, read_batches(READS, 32, 120), out,
+                               metrics=m) == 549
+    with open(out) as f:
+        assert f.read() == _golden()
+    assert len(m.batches) == 4
+    # batch 0 is handed over with no flush in flight; batches 1-2 wait on
+    # the one before them, batch 3 (flushed by the main thread) on batch 2
+    assert m.batches[0].wait_s == 0
+    for b in m.batches:
+        assert min(b.queue_s, b.step_s, b.step_cpu_s, b.evalue_s,
+                   b.names_s) > 0
+        assert b.evalue_s <= b.columns_s and b.names_s <= b.format_s
+        assert b.step_cpu_s <= b.step_s + 2e-3
+        assert b.wall_s >= b.step_s + b.queue_s - 1e-9
+    assert all(b.wait_s > 0 for b in m.batches[1:])
+
+
+def _spans(path):
+    """The trace's ghostm.* ranges: [(name, batch id or None, tid, start,
+    end)]."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = []
+    for e in events:
+        if e.get("ph") == "X" and e.get("name", "").startswith("ghostm."):
+            name, _, bi = e["name"][len("ghostm."):].partition("#")
+            out.append((name, int(bi) if bi else None, e["tid"],
+                        e["ts"], e["ts"] + e["dur"]))
+    return out
+
+
+def test_profile_trace_has_the_program_spans(index, tmp_path):
+    """aln --profile over 4 batches: the trace holds the loop's, the
+    step's and the flush's spans, the flush thread's included; each
+    engine span lies inside its batch's ghostm.step on the same thread,
+    each writer span inside a ghostm.flush, and every batch has one step
+    and one flush."""
+    out, prof = str(tmp_path / "hits.tsv"), str(tmp_path / "prof")
+    assert _aln(index, out, "--batch", "32", "--profile", prof) == 0
+    with open(out) as f:
+        assert f.read() == _golden()
+    spans = _spans(os.path.join(prof, "trace.json"))
+    names = {s[0] for s in spans}
+    assert {"loop.next", "loop.wait", "step", "step.h2d", "step.translate",
+            "step.propose", "step.align", "step.rank", "step.refine",
+            "step.pack", "flush", "flush.fetch", "flush.unpack",
+            "flush.columns", "flush.evalue", "flush.format", "flush.names",
+            "flush.write", "flush.record"} <= names
+    for outer in ("step", "flush"):
+        ids = sorted(s[1] for s in spans if s[0] == outer)
+        assert ids == [0, 1, 2, 3]
+        boxes = [s for s in spans if s[0] == outer]
+        inner = [s for s in spans if s[0].startswith(outer + ".")]
+        assert inner and all(s[1] is None for s in inner)
+        for name, _, tid, a, b in inner:
+            assert any(t == tid and a0 <= a and b <= b0
+                       for _, _, t, a0, b0 in boxes), name
+    # batches 0-2 are flushed on the flush thread, batch 3 on the main one
+    flush_tid = {s[1]: s[2] for s in spans if s[0] == "flush"}
+    main = {s[2] for s in spans if s[0] == "step"}
+    assert len(main) == 1 and flush_tid[3] in main
+    assert not {flush_tid[b] for b in (0, 1, 2)} & main
+
+
+def test_no_profiler_no_record_function(index, tmp_path, monkeypatch):
+    """With no profiler recording, run_search enters no record_function:
+    every span is the shared null context."""
+    from ghostm_tpu_torch.utils import metrics as mmod
+
+    calls = []
+
+    def stub(*a, **k):
+        calls.append(a)
+        return mmod._NULL_SPAN
+
+    monkeypatch.setattr(torch.profiler, "record_function", stub)
+    eng = tengine.SearchEngine(Config(query_batch=32), load_index(index),
+                               device="cpu")
+    out = str(tmp_path / "hits.tsv")
+    assert pipeline.run_search(eng, read_batches(READS, 32, 120),
+                               out) == 549
+    assert calls == []
+    # the stub is what a span enters while a profiler records
+    monkeypatch.setattr(torch.autograd.profiler, "_is_profiler_enabled",
+                        True)
+    with mmod.span("step", 7):
+        pass
+    assert calls == [("ghostm.step#7",)]
+
+
+def test_metrics_log_window_rate(index, tmp_path):
+    """MetricsLog.summary(): reads over the window from the first launch
+    to the last rows written (not over the sum of the batches' overlapping
+    walls), and no GCUPS."""
+    m = MetricsLog()
+    m.add(BatchMetrics(reads=100, wall_s=2.0, hits=5), 10.0, 12.0)
+    m.add(BatchMetrics(reads=100, wall_s=3.0, hits=7), 11.0, 14.0)
+    assert m.summary() == {"reads": 200, "wall_s": 4.0,
+                           "reads_per_s": 50.0, "hits": 12}
+    assert not {"sw_cells", "candidates"} & set(vars(m.batches[0]))
+    eng = tengine.SearchEngine(Config(query_batch=32), load_index(index),
+                               device="cpu")
+    m = MetricsLog()
+    out = str(tmp_path / "hits.tsv")
+    assert pipeline.run_search(eng, read_batches(READS, 32, 120), out,
+                               metrics=m) == 549
+    s = m.summary()
+    assert set(s) == {"reads", "wall_s", "reads_per_s", "hits"}
+    assert s["hits"] == 549
+    assert 0 < m.last_written - m.first_launch < sum(
+        b.wall_s for b in m.batches)
+    assert s["reads_per_s"] == round(
+        s["reads"] / (m.last_written - m.first_launch), 1)
 
 
 def test_debug_nans(index, tmp_path):
