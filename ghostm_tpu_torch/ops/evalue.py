@@ -152,18 +152,28 @@ def length_adjustment(
     """BLAST finite-size length adjustment l (vectorised over query length
     m): the converged fixed point of l = ln(K (m-l)(n - N l)) / H, clamped
     so effective lengths stay positive (cf. BLAST_ComputeLengthAdjustment).
+    l depends on m alone, so the iteration runs once for each distinct m
+    and is indexed back to m's shape: the same float64 operations on the
+    same values, elementwise, so the same bits as a solve over every m.
     """
     m = np.asarray(m, dtype=np.float64)
+    lens, back = np.unique(m, return_inverse=True)
     n = float(n)
     num_seqs = max(int(num_seqs), 1)
     logk = np.log(k)
     floor_len = 1.0 / k   # BLAST floors effective lengths at 1/K
-    ell = np.zeros_like(m)
+    ell = np.zeros_like(lens)
     for _ in range(20):
-        me = np.maximum(m - ell, floor_len)
+        me = np.maximum(lens - ell, floor_len)
         ne = np.maximum(n - num_seqs * ell, floor_len)
         ell = np.clip((logk + np.log(me * ne)) / h, 0.0, None)
-    return np.floor(ell)
+    return np.floor(ell)[back].reshape(m.shape)
+
+
+def adjusted(h: float, db_seqs: int) -> bool:
+    """Whether e_value applies the length adjustment: H and the database's
+    sequence count are known."""
+    return h > 0.0 and db_seqs > 0
 
 
 def bit_score(raw: np.ndarray, lam: float, k: float) -> np.ndarray:
@@ -184,11 +194,14 @@ def e_value(
 
     With h > 0 and db_seqs > 0, m'/n' are BLAST effective lengths (length
     adjustment above); otherwise the plain Karlin-Altschul search space.
+    qlen broadcasts against raw: a caller with R reads of K hits each
+    passes raw (R, K) and qlen (R, 1), so the lengths' terms are formed a
+    read and only exp(-lambda * S) a hit.
     """
     raw = np.asarray(raw, dtype=np.float64)
     m = np.asarray(qlen, dtype=np.float64)
     n = float(db_residues)
-    if h > 0.0 and db_seqs > 0:
+    if adjusted(h, db_seqs):
         ell = length_adjustment(k, h, m, n, db_seqs)
         m_eff = np.maximum(m - ell, 1.0 / k)
         n_eff = np.maximum(n - db_seqs * ell, 1.0 / k)

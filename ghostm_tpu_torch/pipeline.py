@@ -257,11 +257,13 @@ def run_search(engine, batches: Iterable, output: str,
                 log.info(
                     "batch %d: %d reads, %d rows, wall %.1f ms: step %.1f "
                     "(cpu %.1f), wait %.1f, queue %.1f, fetch %.1f, columns "
-                    "%.1f (e-values %.1f), format %.1f (names %.1f), write "
-                    "%.1f", bi, len(names), rows,
+                    "%.1f (e-values %.1f, lengths %d), format %.1f (names "
+                    "%.1f), write %.1f", bi, len(names), rows,
                     *(1e3 * getattr(m, k) for k in (
                         "wall_s", "step_s", "step_cpu_s", "wait_s",
-                        "queue_s", "fetch_s", "columns_s", "evalue_s",
+                        "queue_s", "fetch_s", "columns_s", "evalue_s")),
+                    m.evalue_lengths,
+                    *(1e3 * getattr(m, k) for k in (
                         "format_s", "names_s", "write_s")),
                     extra={"metrics": vars(m)},
                 )

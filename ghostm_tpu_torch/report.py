@@ -191,51 +191,55 @@ def write_hits(
     seconds of the vectorised columns, the formatting and the write are
     added to its "columns_s", "format_s" and "write_s", and those of the
     e-values (inside the columns) and of the read-name arena (inside the
-    formatting) to "evalue_s" and "names_s".
+    formatting) to "evalue_s" and "names_s"; the distinct query lengths
+    whose length adjustment was solved are added to "evalue_lengths".
     """
     t0 = time.perf_counter()
     R, K = hits.score.shape
     nR = min(R, len(read_names))
     lam, kk, kh = cfg.ka_params()
     with span("flush.columns"):
-        # Vectorised column computation + filter; the Python loop below
-        # only formats the few surviving rows. All float math is float64
-        # in the same expression order as a per-row loop's, so the
-        # formatted text is identical.
+        # The e-values over every hit give the filter; the other columns
+        # are computed on the kept rows only. All float math is float64 in
+        # the same expression order as a per-row loop's, so the formatted
+        # text is identical.
         sc = hits.score[:nR].astype(np.int64)
         qlen_aa = np.maximum(read_lens[:nR].astype(np.int64) // 3, 1)
         # BLAST effective-length correction when H and the sequence count
-        # are known (ops/evalue.py); plain K*m*n search space otherwise.
+        # are known (ops/evalue.py: solved once for each distinct query
+        # length); plain K*m*n search space otherwise.
         with span("flush.evalue"):
             te = time.perf_counter()
-            e = ev.e_value(
-                sc.reshape(-1), np.repeat(qlen_aa, K), db_residues, lam, kk,
-                h=kh, db_seqs=db_seqs,
-            ).reshape(nR, K)
+            e = ev.e_value(sc, qlen_aa[:, None], db_residues, lam, kk,
+                           h=kh, db_seqs=db_seqs)
+            if timing is not None and ev.adjusted(kh, db_seqs):
+                timing["evalue_lengths"] = (timing.get("evalue_lengths", 0)
+                                            + np.unique(qlen_aa).size)
             _add(timing, "evalue_s", te)
         keep = (sc > 0) & (e <= cfg.evalue_cutoff)
-        r_idx, k_idx = np.nonzero(keep)
-        if r_idx.size == 0:
+        # the kept hits' flat (read, rank) indices, row-major: the rows'
+        # order
+        kept = np.flatnonzero(keep)
+        if kept.size == 0:
             _add(timing, "columns_s", t0)
             return 0
-        span_len = stats["send"][:nR] - stats["sstart"][:nR]
-        s_end_sub = hits.s_end[:nR].astype(np.int64) + 1  # 1-based incl.
-        s_start_sub = s_end_sub - span_len
+        r_idx = kept // K
+        pick = lambda a: np.asarray(a)[:nR].take(kept)
+        sc, e = pick(sc), pick(e)
         qs_dna, qe_dna = frame_to_dna_coords(
-            hits.frame[:nR].reshape(-1),
-            stats["qstart"][:nR].reshape(-1),
-            stats["qend"][:nR].reshape(-1),
-            np.repeat(read_lens[:nR], K),
+            pick(hits.frame), pick(stats["qstart"]), pick(stats["qend"]),
+            read_lens[r_idx],
         )
-        qs_dna = qs_dna.reshape(nR, K)
-        qe_dna = qe_dna.reshape(nR, K)
-        length = stats["length"][:nR]
-        matches = stats["matches"][:nR]
-        pident = 100.0 * matches / np.maximum(length, 1)
-        bits = ev.bit_score(sc.reshape(-1), lam, kk).reshape(nR, K)
-        mismatch = stats["mismatch"][:nR]
-        gapopen = stats["gapopen"][:nR]
-        gsid = hits.gsid[:nR]
+        # window span -> subject-local 1-based inclusive coordinates
+        s_end_sub = pick(hits.s_end).astype(np.int64) + 1
+        s_start_sub = s_end_sub - (pick(stats["send"])
+                                   - pick(stats["sstart"]))
+        length = pick(stats["length"])
+        pident = 100.0 * pick(stats["matches"]) / np.maximum(length, 1)
+        bits = ev.bit_score(sc, lam, kk)
+        mismatch = pick(stats["mismatch"])
+        gapopen = pick(stats["gapopen"])
+        gsid = pick(hits.gsid)
         t1 = _add(timing, "columns_s", t0)
     with span("flush.format"):
         text = None
@@ -245,29 +249,27 @@ def write_hits(
                 tn = time.perf_counter()
                 qarena, qoff = _name_arena(read_names)
                 _add(timing, "names_s", tn)
-            pick = lambda a: np.asarray(a)[r_idx, k_idx]
             text = native.m8_format(
-                r_idx, qarena, qoff, pick(gsid), sarena, soff,
-                pick(pident), pick(length), pick(mismatch), pick(gapopen),
-                pick(qs_dna), pick(qe_dna), pick(s_start_sub),
-                pick(s_end_sub), pick(e), pick(bits),
+                r_idx, qarena, qoff, gsid, sarena, soff, pident, length,
+                mismatch, gapopen, qs_dna, qe_dna, s_start_sub, s_end_sub,
+                e, bits,
             )
         if text is not None:
             text = text.decode()
         else:
             text = "".join([
-                f"{read_names[r]}\t{subject_names[int(gsid[r, k])]}\t"
-                f"{pident[r, k]:.2f}\t{length[r, k]}\t{mismatch[r, k]}\t"
-                f"{gapopen[r, k]}\t{qs_dna[r, k]}\t{qe_dna[r, k]}\t"
-                f"{s_start_sub[r, k]}\t{s_end_sub[r, k]}\t{e[r, k]:.2e}\t"
-                f"{bits[r, k]:.1f}\n"
-                for r, k in zip(r_idx.tolist(), k_idx.tolist())
+                f"{read_names[r]}\t{subject_names[g]}\t{p:.2f}\t{ln}\t"
+                f"{mm}\t{go}\t{qs}\t{qe}\t{ss}\t{se}\t{ev_:.2e}\t{bs:.1f}\n"
+                for r, g, p, ln, mm, go, qs, qe, ss, se, ev_, bs in zip(*(
+                    c.tolist() for c in (
+                        r_idx, gsid, pident, length, mismatch, gapopen,
+                        qs_dna, qe_dna, s_start_sub, s_end_sub, e, bits)))
             ])
         t2 = _add(timing, "format_s", t1)
     with span("flush.write"):
         out.write(text)
         _add(timing, "write_s", t2)
-    return len(r_idx)
+    return len(kept)
 
 
 def _add(timing: Optional[Dict[str, float]], key: str, since: float) -> float:

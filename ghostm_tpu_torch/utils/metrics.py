@@ -57,6 +57,8 @@ class BatchMetrics:
     # parts of columns_s (the e-values) and of format_s (the read names)
     evalue_s: float = 0.0
     names_s: float = 0.0
+    # the distinct query lengths whose e-value length adjustment was solved
+    evalue_lengths: int = 0
 
 
 class MetricsLog:

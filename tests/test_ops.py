@@ -228,3 +228,47 @@ def test_evalue_length_adjustment():
     np.testing.assert_allclose(e_corr[0], want, rtol=1e-12)
     ell_big = evalue.length_adjustment(k, h, np.array([500.0]), 1e9, 100000)
     assert ell_big[0] > ell[0]
+
+
+@pytest.mark.parametrize("lengths", ["repeated", "one"])
+def test_port_length_adjustment_distinct_solve_bit_equal(lengths):
+    """The port's length_adjustment solves once for each distinct query
+    length and indexes back: bit-equal (np.array_equal on float64) to the
+    20-iteration fixed point over the full repeated array, written out
+    here; and the port's e_value with per-read lengths (R, 1) against
+    per-hit scores (R, K) equals the per-hit solve."""
+    from ghostm_tpu_torch.ops import evalue as tevalue
+
+    lam, k, h = 0.267, 0.041, 0.14
+    n, nseq = 206_000_000.0, 570_000
+    rng = np.random.default_rng(3)
+    if lengths == "one":
+        qlen = np.full(8192, 33, np.int64)
+    else:
+        # 300 distinct lengths up to Swiss-Prot's, each repeated: past
+        # ~140 aa the adjustment varies with the length
+        qlen = rng.choice(rng.choice(np.arange(1, 3000), 300,
+                                     replace=False), 8192)
+    m = np.repeat(qlen, 10).astype(np.float64)
+    ell = np.zeros_like(m)
+    for _ in range(20):
+        me = np.maximum(m - ell, 1.0 / k)
+        ne = np.maximum(n - nseq * ell, 1.0 / k)
+        ell = np.clip((np.log(k) + np.log(me * ne)) / h, 0.0, None)
+    want = np.floor(ell)
+    if lengths == "repeated":
+        assert np.unique(want).size > 10   # the adjustment varies
+    got = tevalue.length_adjustment(k, h, m, n, nseq)
+    assert got.shape == m.shape and np.array_equal(got, want)
+    assert np.array_equal(
+        tevalue.length_adjustment(k, h, qlen[:, None], n, nseq)[:, 0],
+        want[::10])
+    raw = rng.integers(-5, 120, (8192, 10))
+    m_eff = np.maximum(m - want, 1.0 / k)
+    n_eff = np.maximum(n - nseq * want, 1.0 / k)
+    e_want = k * m_eff * n_eff * np.exp(-lam * raw.reshape(-1).astype(
+        np.float64))
+    for q in (qlen[:, None], np.repeat(qlen, 10).reshape(8192, 10)):
+        e = tevalue.e_value(raw, q, n, lam, k, h=h, db_seqs=nseq)
+        assert e.shape == (8192, 10)
+        assert np.array_equal(e.reshape(-1), e_want)

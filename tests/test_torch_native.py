@@ -26,6 +26,7 @@ from ghostm_tpu_torch import native
 from ghostm_tpu_torch.config import Config
 from ghostm_tpu_torch.engine import BatchHits
 from ghostm_tpu_torch.index import seeds
+from ghostm_tpu_torch.ops import evalue as ev
 from ghostm_tpu_torch.ops.encode import SENTINEL
 from ghostm_tpu_torch.report import SubjectNames, _name_arena, write_hits
 
@@ -193,20 +194,55 @@ def _hits(seed=7, R=128, K=5, nsub=500):
     return fields, stats
 
 
-def test_write_hits_native_equals_python_and_jax(lib):
+def _writer_case(case, R, K):
+    """write_hits inputs for one case: (fields, stats, read lengths,
+    config kwargs). "one_length": every read 100 bp; "many_lengths": 2-250
+    bp, reads under 3 bp among them (their qlen_aa floors at 1), scored
+    with PAM30 9/1, whose larger H makes the length adjustment vary over
+    these lengths (BLOSUM62's is the same for every query this short);
+    "none_kept": an e-value cutoff no hit meets; "empty_neighbours": every
+    other hit an empty alignment (ie < 0: coordinates -1, zero stats) with
+    a zero or negative score, beside kept hits."""
+    fields, stats = _hits(R=R, K=K)
+    rng2 = np.random.default_rng(11)
+    lens = np.full(R, 100, np.int32)
+    kw = {}
+    if case == "many_lengths":
+        lens = rng2.integers(2, 251, R).astype(np.int32)
+        lens[:3] = (2, 2, 5)
+        kw = dict(matrix="PAM30", gap_open=9, gap_extend=1)
+    elif case == "none_kept":
+        kw["evalue_cutoff"] = 1e-300
+    elif case == "empty_neighbours":
+        empty = np.zeros((R, K), bool)
+        empty[:, 1::2] = True
+        fields = list(fields)
+        fields[0] = np.where(empty, -rng2.integers(0, 2, (R, K)),
+                             fields[0]).astype(np.int32)
+        for k in ("qstart", "qend", "sstart", "send"):
+            stats[k] = np.where(empty, -1, stats[k]).astype(np.int32)
+        for k in ("length", "matches", "mismatch", "gapopen"):
+            stats[k] = np.where(empty, 0, stats[k]).astype(np.int32)
+    return fields, stats, lens, kw
+
+
+@pytest.mark.parametrize("case", ["one_length", "many_lengths", "none_kept",
+                                  "empty_neighbours"])
+def test_write_hits_native_equals_python_and_jax(lib, case):
     """write_hits with a SubjectNames (the C formatter) writes the bytes of
     the Python loop (a plain dict) and of the JAX package's write_hits
-    (both routes), with non-ASCII utf-8 names."""
+    (both routes), with non-ASCII utf-8 names: at one read length, at many
+    (the length adjustment solved once for each), with no row kept, and
+    with empty alignments and non-positive scores beside the kept hits."""
     R, K = 128, 5
-    fields, stats = _hits(R=R, K=K)
+    fields, stats, lens, kw = _writer_case(case, R, K)
     names = [f"read{i}" + ("_ü" if i % 3 == 0 else "") for i in range(R)]
     d = {i: f"s{i}" + ("_ß" if i % 4 == 0 else "") for i in range(500)}
-    lens = np.full(R, 100, np.int32)
     outs, rows = [], []
     for wh, Cfg, BH, SN in ((write_hits, Config, BatchHits, SubjectNames),
                             (jwrite_hits, JConfig, JBatchHits,
                              JSubjectNames)):
-        cfg = Cfg(query_batch=R, seed_len=4)
+        cfg = Cfg(query_batch=R, seed_len=4, **kw)
         for sn in (d, SN(d)):
             b = io.StringIO()
             rows.append(wh(b, cfg, names, lens, sn, BH(*fields), stats,
@@ -215,16 +251,35 @@ def test_write_hits_native_equals_python_and_jax(lib):
     native.reset_calls()
     timing = {}
     b = io.StringIO()
-    write_hits(b, Config(query_batch=R, seed_len=4), names, lens,
-               SubjectNames(d), BatchHits(*fields), stats, 10**6, 500,
-               timing=timing)
-    assert native.CALLS[("m8_format", "native")] == 1
-    assert set(timing) == {"columns_s", "evalue_s", "format_s", "names_s",
-                           "write_s"}
-    assert timing["evalue_s"] <= timing["columns_s"]
-    assert timing["names_s"] <= timing["format_s"]
-    assert rows[0] > 0 and len(set(rows)) == 1
+    rows.append(write_hits(b, Config(query_batch=R, seed_len=4, **kw), names,
+                           lens, SubjectNames(d), BatchHits(*fields), stats,
+                           10**6, 500, timing=timing))
+    assert len(set(rows)) == 1
     assert all(o == outs[0] for o in outs + [b.getvalue()])
+    assert timing["evalue_lengths"] == np.unique(
+        np.maximum(lens // 3, 1)).size
+    assert timing["evalue_s"] <= timing["columns_s"]
+    if case == "none_kept":
+        assert rows[0] == 0 and outs[0] == ""
+        assert set(timing) == {"columns_s", "evalue_s", "evalue_lengths"}
+        return
+    assert rows[0] > 0
+    assert native.CALLS[("m8_format", "native")] == 1
+    assert set(timing) == {"columns_s", "evalue_s", "evalue_lengths",
+                           "format_s", "names_s", "write_s"}
+    assert timing["names_s"] <= timing["format_s"]
+    if case == "one_length":
+        assert timing["evalue_lengths"] == 1
+    if case == "many_lengths":
+        assert timing["evalue_lengths"] > 50
+        _, kk, kh = Config(**kw).ka_params()
+        assert np.unique(ev.length_adjustment(
+            kk, kh, np.maximum(lens // 3, 1), 10**6, 500)).size > 1
+        assert any(ln.split("\t")[0] == "read0_ü" for ln in
+                   outs[0].splitlines())   # a 2 bp read has a row
+    if case == "empty_neighbours":
+        # no empty alignment is kept: no row has a -1 coordinate
+        assert "\t-1\t" not in outs[0]
 
 
 def test_python_route_without_a_compiler(tmp_path, monkeypatch, caplog):

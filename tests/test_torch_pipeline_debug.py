@@ -176,6 +176,42 @@ def test_run_search_counters(index, tmp_path):
     assert all(b.wait_s > 0 for b in m.batches[1:])
 
 
+@pytest.mark.parametrize("reads", ["uniform", "mixed"])
+def test_run_search_evalue_lengths(index, tmp_path, caplog, reads):
+    """Each batch records the distinct query lengths whose e-value length
+    adjustment the writer solved (BatchMetrics.evalue_lengths), and its
+    log line carries it: 1 a batch of the golden's 100 bp reads; a
+    batch's distinct count (qlen_aa = max(bp // 3, 1)) when the same
+    reads are cut to 1-100 bp."""
+    path = READS
+    if reads == "mixed":
+        path = str(tmp_path / "mixed.fa")
+        with open(READS) as f, open(path, "w") as g:
+            for i, line in enumerate(f):
+                if not line.startswith(">"):
+                    line = line.strip()[:max(100 - 13 * (i // 2 % 8), 1)]
+                g.write(line.strip() + "\n")
+    want = []
+    for names, _, lens in read_batches(path, 32, 120):
+        want.append(len({max(int(n) // 3, 1)
+                         for n in lens[:len(names)]}))
+    eng = tengine.SearchEngine(Config(query_batch=32), load_index(index),
+                               device="cpu")
+    m = MetricsLog()
+    out = str(tmp_path / "hits.tsv")
+    with caplog.at_level(logging.INFO, logger="ghostm_tpu_torch.pipeline"):
+        pipeline.run_search(eng, read_batches(path, 32, 120), out,
+                            metrics=m)
+    got = [b.evalue_lengths for b in m.batches]
+    assert got == want
+    assert want == [1] * 4 if reads == "uniform" else min(want) > 1
+    lines = [r.getMessage() for r in caplog.records
+             if r.getMessage().startswith("batch ")]
+    assert len(lines) == 4
+    for ln, n in zip(lines, want):
+        assert "(e-values " in ln and f", lengths {n})" in ln
+
+
 def _spans(path):
     """The trace's ghostm.* ranges: [(name, batch id or None, tid, start,
     end)]."""
