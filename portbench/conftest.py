@@ -1,5 +1,5 @@
 """Fixtures of the benchmark's tests: a tiny benchmark (its own
-BENCHMARK.json, the configuration cut to a few thousand proteins, the
+BENCHMARK.json, a configuration cut to a few thousand proteins, the
 real mix cut to small batches) in a temporary directory, with its own
 index cache; and `cuda`, which skips a test of the card without one."""
 
@@ -15,7 +15,15 @@ from portbench import spec
 HERE = Path(__file__).resolve().parent
 TINY = {"swissprot_k5": dict(groups=[3000], size_max=40,
                              traffic="reads100", batch=64, pool_batches=3,
-                             check_reads=192)}
+                             check_reads=192),
+        # each length range cut to ~1/250 (at least one protein), the
+        # 35,213-aa titin kept: ~2,300 proteins, ~0.9 M residues
+        "swissprot_full": dict(groups=[68, 192, 256, 244, 228, 220, 200,
+                                       184, 144, 120, 84, 64, 46, 36, 28,
+                                       23, 19, 16, 13, 11, 48, 18, 11, 4,
+                                       1, 1, 1], size_max=40,
+                               traffic="reads100", batch=64,
+                               pool_batches=3, check_reads=192)}
 
 
 def tiny_bench(d: Path, which: str, search: dict | None = None,
@@ -24,6 +32,7 @@ def tiny_bench(d: Path, which: str, search: dict | None = None,
     its search settings updated by `search` (the copy named with `tag`)."""
     t = TINY[which]
     c = json.loads((HERE / "configs" / f"{which}.json").read_text())
+    assert len(t["groups"]) == len(c["database"]["groups"])
     c["name"] = "tiny_" + which + tag
     c["search"].update(search or {})
     for g, n in zip(c["database"]["groups"], t["groups"]):
@@ -57,6 +66,25 @@ def tiny_dir(tmp_path_factory):
 @pytest.fixture
 def short_cell(tiny_dir):
     return tiny_bench(tiny_dir, "swissprot_k5")
+
+
+@pytest.fixture
+def full_cell(tiny_dir):
+    """The tiny cut of swissprot_full: two index shards and the titin."""
+    return tiny_bench(tiny_dir, "swissprot_full")
+
+
+@pytest.fixture
+def full_loop_cell(full_cell, monkeypatch):
+    """The tiny swissprot_full on the real cell's path: the per-shard loop
+    on CSR seed tables. The tiny index would take direct tables and be
+    merged into one shard at init, so the loop is kept and CSR tables
+    forced, as the port's own shard tests force them."""
+    from ghostm_tpu_torch import engine
+
+    monkeypatch.setenv("GHOSTM_TPU_MERGE_COLOCATED", "0")
+    monkeypatch.setattr(engine, "_packed_value_bound", lambda *a: 1 << 40)
+    return full_cell
 
 
 @pytest.fixture

@@ -6,9 +6,10 @@ out of the run's line.
 Records: `window_s`, `reads_written`, `batches` (the window's
 BatchMetrics), `peak_bytes`, `setup_s`, `launch_s` (host seconds inside
 each window batch's search_refine_async_dna), `cfg` (the engine's
-Config fields); with --trace 1 also `engine` (the step alone: reads,
-wall_s), `trace` (trace.Trace of the profiled stretch), `shapes` (its
-launches by wrapper and input shapes), `profiled_batches`.
+Config fields), `layout` (the engine's seed-table mode, shards in its
+loop and presorted run); with --trace 1 also `engine` (the step alone:
+reads, wall_s), `trace` (trace.Trace of the profiled stretch), `shapes`
+(its launches by wrapper and input shapes), `profiled_batches`.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from portbench import roofline
 
 SW_KERNEL = re.compile(r"\bsw_rows_kernel\b")
 REFINE_KERNEL = re.compile(r"\brefine_(thread|warp)\b")
+SORT_VOTE_KERNEL = re.compile(r"\bsort_vote_kernel\b")
 
 
 def reads_per_s(rec):
@@ -120,3 +122,16 @@ def refine_roofline(rec):
     K, B = cfg.get("max_hits", 1), cfg.get("band_width", 0)
     return _share(rec, "refine", REFINE_KERNEL, lambda s: roofline.bound(
         *roofline.refine_counts(s[0] // K, K, s[1] - B, B))[0])
+
+
+def sort_vote_roofline(rec):
+    """Kernel B2's monolithic entry: its launches' least time at their
+    (Q, M), the candidates a frame and the engine's presorted run, over
+    their device time."""
+    if "layout" not in rec:
+        return None
+    ncand = rec["cfg"]["candidates_per_frame"]
+    run = rec["layout"]["presorted_run"]
+    return _share(rec, "sort_vote_rank_rows", SORT_VOTE_KERNEL,
+                  lambda s: roofline.bound(*roofline.sort_vote_counts(
+                      s[0], s[1], ncand, run))[0])

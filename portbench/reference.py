@@ -2,13 +2,14 @@
 
 Plain PyTorch and numpy, importing nothing of the program: a frozen copy
 of the semantics of the port's CPU path (the plain versions of its
-kernels), cut to what the benchmark's configurations run: one shard,
-every seed position that `db`'s global bucket cap keeps, the vote (with
-collinear chaining where `chain_gamma` > 0), banded Smith-Waterman over
-the subject span, the per-read rank, the moves DP and traceback, and the
-m8 columns. It builds its own seed index from the benchmark's proteins
-(on the device it is given, by one sort) and formats its own rows, so it
-shares no table with the program.
+kernels), cut to what the benchmark's configurations run: one shard
+(a sharded index has to write the same rows), every seed position that
+`db`'s global bucket cap keeps, the vote on 64-bit keys (any subject
+count; with collinear chaining where `chain_gamma` > 0), banded
+Smith-Waterman over the subject span, the per-read rank, the moves DP
+and traceback, and the m8 columns. It builds its own seed index from
+the benchmark's proteins (on the device it is given, by one sort) and
+formats its own rows, so it shares no table with the program.
 
 `saturate` (the control): every DP cell is held at or below that value,
 as an 8-bit saturating DP that skips the wider recompute would hold it.
@@ -26,6 +27,9 @@ from portbench.simulate import AA_ALPHABET
 
 NFRAMES = 6
 BIG = 1 << 30
+# the invalid vote key: above every subject * nbins + bin of any database
+# (570,000 subjects of 2,205 bins reach 2^30 already)
+NO_KEY = 1 << 62
 NEG = -(1 << 30)
 LOW = -(1 << 20)
 PAD = 25
@@ -234,13 +238,13 @@ def _chain(k, votes, first, valid, nbins: int, gamma: int):
 
 def vote(keys: torch.Tensor, ncand: int, min_votes: int, nbins: int,
          chain_gamma: int):
-    """(Q, M) hit keys subject * nbins + bin (invalid: >= BIG) -> the top
-    ncand (key, votes) of each row by (votes desc, key asc); key BIG where
-    votes == 0. A run of one key is its votes, chained where
+    """(Q, M) int64 hit keys subject * nbins + bin (invalid: NO_KEY) ->
+    the top ncand (key, votes) of each row by (votes desc, key asc); key
+    NO_KEY where votes == 0. A run of one key is its votes, chained where
     chain_gamma > 0; rows below min_votes get none."""
     k = torch.sort(keys, dim=1).values
     Q, M = k.shape
-    valid = k < BIG
+    valid = k < NO_KEY
     first = torch.cat([valid[:, :1], (k[:, 1:] != k[:, :-1]) & valid[:, 1:]],
                       dim=1)
     idx = torch.arange(M, device=k.device).expand(Q, M)
@@ -259,7 +263,7 @@ def vote(keys: torch.Tensor, ncand: int, min_votes: int, nbins: int,
                        descending=True).indices[:, :ncand]
     v = torch.gather(votes, 1, order)
     key = torch.where(v > 0, torch.gather(k, 1, order),
-                      torch.full_like(v, BIG))
+                      torch.full_like(v, NO_KEY))
     return key, v
 
 
@@ -282,12 +286,13 @@ def propose(frames: torch.Tensor, sidx: SeedIndex, cfg: dict, nbins: int,
         sid = sidx.sid[j].to(torch.int64)
         off = sidx.off[j].to(torch.int64)
         keys = torch.where(live, sid * nbins + (off + Lq - qpos) // half,
-                           torch.full_like(sid, BIG))
+                           torch.full_like(sid, NO_KEY))
         key, v = vote(keys.reshape(q.shape[0], -1),
                       cfg["candidates_per_frame"], cfg["min_votes"],
                       nbins, cfg.get("chain_gamma", 0))
-        outs.append((torch.where(v > 0, key // nbins, key),
-                     torch.where(v > 0, key % nbins, key)))
+        none = torch.full_like(key, BIG)
+        outs.append((torch.where(v > 0, key // nbins, none),
+                     torch.where(v > 0, key % nbins, none)))
     return tuple(torch.cat(x) for x in zip(*outs))
 
 

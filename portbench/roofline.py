@@ -8,7 +8,8 @@ operations are a logical count, 12 int32 operations a dynamic-programming
 cell (the recurrences' adds and maxes and the best-cell tracking), against
 the FP32 rate with a fused multiply-add counted as 2: a kernel that does
 two cells in one 16-bit DPX instruction could read near 100%, and the
-count is then to be revisited before such a kernel is judged.
+count is then to be revisited before such a kernel is judged. A sort
+counts 2 operations a compare-exchange of its bitonic network.
 """
 
 from __future__ import annotations
@@ -44,3 +45,19 @@ def refine_counts(R: int, K: int, Lq: int, band: int) -> Tuple[int, int]:
     nbytes = (R * 6 * Lq + 2 * N * 4 + N * (Lq + band) + 2 * N * 4
               + 32 * 33 * 4 + 9 * N * 4)
     return nbytes, OPS_PER_CELL * N * Lq * band
+
+
+def sort_vote_counts(Q: int, M: int, ncand: int,
+                     presorted_run: int = 0) -> Tuple[int, int]:
+    """(bytes, operations) of one launch of kernel B2's monolithic entry
+    (sort_vote_rank_rows) on a (Q, M) int32 key array: the keys in; ncand
+    keys and votes a row out; a row padded to L (a power of two, >= 128)
+    sorted by the bitonic network's stages from the first the presorted
+    runs leave (2 a compare-exchange, L / 2 of them a pass, s passes in
+    stage s), then 1 + 2 ncand a key for the run-length vote and the
+    top-ncand."""
+    L = max(1 << max(M - 1, 1).bit_length(), 128)
+    first = min(max(presorted_run, 1).bit_length(), L.bit_length())
+    passes = sum(range(first, L.bit_length()))
+    return (Q * M * 4 + 2 * Q * ncand * 4,
+            Q * (passes * (L // 2) * 2 + (1 + 2 * ncand) * L))

@@ -287,8 +287,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
         if cuda:
             torch.cuda.synchronize()
         setup_s = time.perf_counter() - T_START - db_s - pool_s
-        log(phase="setup", setup_s=setup_s, table_mode=engine.table_mode,
-            route=engine.route)
+        layout = dict(table_mode=engine.table_mode, shards=engine.n_shards,
+                      presorted_run=engine.presorted_run)
+        log(phase="setup", setup_s=setup_s, route=engine.route,
+            merged_colocated=engine.merged_colocated, **layout)
         if engine_hook is not None:
             engine_hook(engine)
         _build.reset_launches()
@@ -296,7 +298,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
         win = Window(pool, seconds)
         out = os.path.join(tmp, "window.m8")
         records.update(launch_s=[], setup_s=setup_s,
-                       cfg=cell.search_config())
+                       cfg=cell.search_config(), layout=layout)
         undo = instrument(engine, records) if trace else None
         rows = error = None
         cpu0 = sum(os.times()[:2])

@@ -45,7 +45,8 @@ def test_counters_are_per_layer_program_counters():
     entries = {m["name"]: m for m in BENCH["per_layer"]}
     for m in COUNTERS:
         assert entries[m]["source"] == "program_counter"
-        assert entries[m]["workloads"] == ["swissprot_k5.reads100"]
+        assert entries[m]["workloads"] == ["swissprot_k5.reads100",
+                                           "swissprot_full.reads100"]
 
 
 PROGRAM_SPANS = [

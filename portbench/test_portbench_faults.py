@@ -54,6 +54,13 @@ def batch_raises(engine):
     engine.search_refine_async_dna = broken
 
 
+def shard_left_out(engine):
+    """The per-shard loop without its second shard: the proposals, the
+    alignments and the rank over the first shard's subjects alone."""
+    assert len(engine.shard_dev) == 2
+    engine.shard_dev = engine.shard_dev[:1]
+
+
 @pytest.mark.parametrize("fault", [half_batch_left_out, answer_altered,
                                    state_unchanged, batch_raises])
 def test_fault_is_not_correct(short_cell, fault):
@@ -67,3 +74,12 @@ def test_sound_run_is_correct(short_cell):
     res = run.run_cell(short_cell, 99, 1.5, False, device="cpu")
     res.pop("_records")
     assert res["correct"], res
+
+
+@pytest.mark.parametrize("fault", [half_batch_left_out, answer_altered,
+                                   state_unchanged, shard_left_out])
+def test_fault_is_not_correct_on_two_shards(full_loop_cell, fault):
+    res = run.run_cell(full_loop_cell, 98, 1.5, False, device="cpu",
+                       engine_hook=fault)
+    res.pop("_records")
+    assert not res["correct"], res

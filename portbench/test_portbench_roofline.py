@@ -24,6 +24,16 @@ def test_refine_bound(R, Lq, band, ms):
     assert by == "operations" and secs * 1e3 == pytest.approx(ms, rel=3e-3)
 
 
+@pytest.mark.parametrize("Q, M, run, ms", [
+    (8192, 3640, 0, 0.0476),        # B2 mono, CSR rows (PERF.md §6)
+    (12288, 2200, 0, 0.0714),       # B2 mono, CSR rows of two shards
+    (768, 608, 16, 0.00073),        # B2 mono, golden rows, runs of 16
+])
+def test_sort_vote_bound(Q, M, run, ms):
+    secs, by = roofline.bound(*roofline.sort_vote_counts(Q, M, 8, run))
+    assert by == "operations" and secs * 1e3 == pytest.approx(ms, rel=5e-3)
+
+
 def test_bytes_bound_wins_when_ops_are_few():
     secs, by = roofline.bound(3.35e12, 1.0)
     assert by == "bytes" and secs == pytest.approx(1.0)

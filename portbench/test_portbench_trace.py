@@ -79,3 +79,29 @@ def test_readers(trace):
     # launches the trace does not hold: nothing to read
     rec["shapes"]["refine"] = [[[[200, 72]], 2]]
     assert spec.reader("refine_roofline")(rec) is None
+
+
+def test_sort_vote_reader(tmp_path):
+    """B2's monolithic entry: two launches at (6144, 5120), CSR rows (no
+    presorted run), 8 candidates a frame, 400 us of device time."""
+    ev = [X("user_annotation", "portbench.window", 0, 1000),
+          X("user_annotation", "portbench.launch", 10, 900)]
+    ev += kernel("void (anonymous namespace)::sort_vote_kernel<13, 8>(x)",
+                 20, 30, 150, 1)
+    ev += kernel("void (anonymous namespace)::sort_vote_kernel<13, 8>(x)",
+                 40, 200, 250, 2)
+    ev += kernel("void merge_vote_kernel<8>(x)", 60, 500, 50, 3)
+    p = tmp_path / "t.json"
+    p.write_text(json.dumps(dict(traceEvents=ev)))
+    rec = dict(trace=Trace(str(p)), profiled_batches=1,
+               cfg=dict(candidates_per_frame=8),
+               layout=dict(table_mode="csr", shards=2, presorted_run=0),
+               shapes=dict(sort_vote_rank_rows=[[[[6144, 5120]], 2]]))
+    least = roofline.bound(*roofline.sort_vote_counts(6144, 5120, 8))[0]
+    assert spec.reader("sort_vote_roofline")(rec) == pytest.approx(
+        100 * 2 * least / 400e-6)
+    # a run with no layout record (or one launch the trace lacks): nothing
+    assert spec.reader("sort_vote_roofline")(
+        {k: v for k, v in rec.items() if k != "layout"}) is None
+    rec["shapes"]["sort_vote_rank_rows"][0][1] = 3
+    assert spec.reader("sort_vote_roofline")(rec) is None
