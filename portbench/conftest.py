@@ -98,6 +98,18 @@ def chain_cell(tiny_dir):
 
 
 @pytest.fixture
+def genome_cell(chain_cell):
+    """The chained tiny cell on long-read traffic cut short: reads of
+    300-600 bp over several genes on both strands, with errors (ten times
+    the HiFi rates, so most reads carry one), frames of 200."""
+    chain_cell.traffic.update(
+        reads="genomes", frame_len=200, max_read_len=600, read_len_min=300,
+        read_len_max=600, len_median=450, len_sigma=0.3, spacer_min=50,
+        spacer_max=200, sub_rate=0.01, ins_rate=0.005, del_rate=0.005)
+    return chain_cell
+
+
+@pytest.fixture
 def cuda():
     """Skips a test of the card where there is none."""
     import torch

@@ -33,6 +33,10 @@ NO_KEY = 1 << 62
 NEG = -(1 << 30)
 LOW = -(1 << 20)
 PAD = 25
+# hit keys a propose pass holds: at long frames (Lq 3,456 x 128 seeds a
+# k-mer, 442,368 a frame) 2,048 frames would hold 0.9 G int64 keys, and the
+# vote's sort and chain scan several copies of them
+PROPOSE_KEYS = 1 << 26
 AA_X, AA_STOP = 22, 23
 
 _B62 = """
@@ -271,10 +275,13 @@ def propose(frames: torch.Tensor, sidx: SeedIndex, cfg: dict, nbins: int,
             chunk: int = 2048):
     """(Qf, Lq) frames -> (subject, bin), each (Qf, ncand) int64, BIG
     where the candidate has no votes. A seed at query position p and
-    subject offset o votes for bin (o + Lq - p) // (band / 2)."""
+    subject offset o votes for bin (o + Lq - p) // (band / 2). Frames go
+    `chunk` at a time, fewer where their Lq x width hit keys would pass
+    PROPOSE_KEYS."""
     Qf, Lq = frames.shape
     half = cfg["band_width"] // 2
     W = sidx.width
+    chunk = max(1, min(chunk, PROPOSE_KEYS // max(Lq * W, 1)))
     outs = []
     slots = torch.arange(W, device=frames.device)
     qpos = torch.arange(Lq, device=frames.device)[None, :, None]

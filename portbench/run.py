@@ -55,8 +55,11 @@ if str(ROOT) not in sys.path:
 
 import numpy as np  # noqa: E402
 
-from portbench import check, dbcache, simulate, spec  # noqa: E402
+from portbench import check, dbcache, longreads, simulate, spec  # noqa: E402
 
+# a mix's read simulator by its "reads": a window of one protein a read
+# (the default), or a window of a genome stretch of several genes
+READ_MODELS = {"windows": simulate.reads, "genomes": longreads.reads}
 FORBIDDEN = ("jax", "jaxlib", "flax", "ghostm_tpu")
 ENGINE_BATCHES = 64          # stretch 2: the step alone
 SATURATE = 127               # the control's DP: 8 bits, saturating
@@ -77,11 +80,12 @@ def log(**kw) -> None:
 
 def make_pool(cell, codes, lens, seed: int) -> list:
     """The mix's pool_batches distinct batches from the seed:
-    [(names, (batch, max_read_len) int8 DNA, (batch,) int32 lengths)]."""
+    [(names, (batch, max_read_len) int8 DNA, (batch,) int32 lengths)],
+    made by the simulator the mix's `reads` names (READ_MODELS)."""
     t = cell.traffic
     P, B = t["pool_batches"], t["batch"]
-    dna, rl, _ = simulate.reads(simulate.rng_for(seed), codes, lens, P * B,
-                                t)
+    model = READ_MODELS[t.get("reads", "windows")]
+    dna, rl = model(simulate.rng_for(seed), codes, lens, P * B, t)[:2]
     return [([check.read_name(b, i) for i in range(B)],
              dna[b * B:(b + 1) * B], rl[b * B:(b + 1) * B])
             for b in range(P)]

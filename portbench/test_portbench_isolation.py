@@ -11,8 +11,8 @@ import pytest
 
 HERE = Path(__file__).resolve().parent
 JAX = {"jax", "jaxlib", "flax", "ghostm_tpu"}
-REFERENCE = ("portbench.reference", "portbench.simulate", "portbench.check",
-             "portbench.roofline")
+REFERENCE = ("portbench.reference", "portbench.simulate",
+             "portbench.longreads", "portbench.check", "portbench.roofline")
 
 
 def imported(path: Path) -> set:

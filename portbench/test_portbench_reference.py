@@ -37,7 +37,8 @@ def test_reference_is_deterministic_and_per_read(short_cell):
 
 @pytest.mark.parametrize("which, seed", [("short_cell", 2 ** 31 + 77),
                                          ("short_cell", 4),
-                                         ("chain_cell", 2 ** 31 + 78)])
+                                         ("chain_cell", 2 ** 31 + 78),
+                                         ("genome_cell", 2 ** 31 + 80)])
 def test_program_equals_reference(which, seed, request):
     cell = request.getfixturevalue(which)
     res = run.run_cell(cell, seed, 1.0, False, device="cpu")
@@ -48,6 +49,24 @@ def test_program_equals_reference(which, seed, request):
     # no device memory on a CPU
     assert set(res["metrics"]) == {"reads_per_s", "batch_p95_ms", "setup_s"}
     assert res["failed"] == 0
+
+
+def test_propose_chunks_by_keys(chain_cell, monkeypatch):
+    """Frames go through propose in passes bounded by their hit keys; the
+    candidates do not depend on the passes."""
+    _, codes, lens, _ = dbcache.ensure(chain_cell, run.ROOT)
+    cfg = chain_cell.search_config()
+    sidx = reference.SeedIndex(codes, lens, cfg["seed_len"],
+                               cfg["hits_per_seed"], "cpu")
+    pool = run.make_pool(chain_cell, codes, lens, 12)
+    fr = torch.as_tensor(reference.six_frames(pool[0][1], pool[0][2], 40))
+    fr = fr.reshape(-1, 40)
+    nbins = (int(lens.max()) + 40) // 32 + 2
+    whole = reference.propose(fr, sidx, cfg, nbins)
+    monkeypatch.setattr(reference, "PROPOSE_KEYS", 7 * 40 * sidx.width)
+    cut = reference.propose(fr, sidx, cfg, nbins)
+    assert all(torch.equal(a, b) for a, b in zip(whole, cut))
+    assert (whole[0] < reference.BIG).sum() > 100
 
 
 @pytest.mark.parametrize("chain_gamma", [0, 2])
