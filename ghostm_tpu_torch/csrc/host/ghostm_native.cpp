@@ -11,17 +11,27 @@
 //   - fasta_scan/read: two-pass FASTA parser into a packed arena
 //                      (io/fasta.py iter_fasta for protein DBs)
 //   - m8_format_rows:  BLAST-m8 TSV row formatter (report.write_hits's
-//                      per-row f-string loop; printf %.2f/%.2e/%.1f are
-//                      correctly rounded like CPython's float formatting,
-//                      so the text is byte-identical)
+//                      per-row f-string loop; std::to_chars, or printf on a
+//                      library without floating-point to_chars, rounds
+//                      %.2f/%.2e/%.1f correctly like CPython's float
+//                      formatting, so the text is byte-identical)
 //
 // Build: $CXX -O3 -march=native -fPIC -shared -std=c++17 (native.py)
 
+#include <charconv>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
 #include <cstdlib>
 #include <vector>
+
+// Floating-point std::to_chars with a precision came with libstdc++ 11.
+// Older libraries build the snprintf loop, which writes the same bytes;
+// GHOSTM_M8_SNPRINTF builds it on any compiler (the tests pin its bytes).
+#if defined(__cpp_lib_to_chars) && __cpp_lib_to_chars >= 201611L && \
+    !defined(GHOSTM_M8_SNPRINTF)
+#define GHOSTM_M8_TO_CHARS 1
+#endif
 
 extern "C" {
 
@@ -171,10 +181,39 @@ int fasta_read(const char* path, int8_t* seq_arena, int64_t* seq_starts,
 // One call formats n pre-filtered rows. Name strings come as packed arenas
 // with (len+1)-style offset tables: record i's bytes are
 // arena[off[i] .. off[i+1]-1] (no NULs required). The numeric columns are
-// the exact float64/int values the Python path feeds its f-string, so
-// printf and CPython produce the same text (both correctly rounded,
-// half-to-even; "%.2e" and Python ":.2e" both emit >= 2 exponent digits).
-// Returns bytes written, or -1 if `cap` is too small (caller resizes).
+// the exact float64/int values the Python path feeds its f-string, and
+// to_chars, printf and CPython produce the same text (all correctly
+// rounded, half-to-even on the exact binary value; "%.2e", to_chars'
+// scientific and Python ":.2e" all emit >= 2 exponent digits).
+// A row's numeric tail (its ten columns, their tabs and the newline) must
+// take fewer than M8_TAIL bytes: 134 with every integer at its extreme,
+// which leaves 25 for pident and bits. The caller reserves M8_TAIL a row
+// past the names. Writes stay inside `cap`. Returns bytes written, or -1
+// if `cap` is too small or a row's tail does not fit its reserve (a value
+// too wide in fixed notation).
+
+static const int64_t M8_TAIL = 160;
+
+#ifdef GHOSTM_M8_TO_CHARS
+// Write v and then sep at p, short of end; nullptr when they do not fit
+// (or when p is already nullptr, so a row's columns chain).
+static inline char* put_int(char* p, char* end, int64_t v, char sep) {
+    if (!p) return nullptr;
+    std::to_chars_result r = std::to_chars(p, end, v);
+    if (r.ec != std::errc() || r.ptr == end) return nullptr;
+    *r.ptr = sep;
+    return r.ptr + 1;
+}
+
+static inline char* put_float(char* p, char* end, double v,
+                              std::chars_format fmt, int prec, char sep) {
+    if (!p) return nullptr;
+    std::to_chars_result r = std::to_chars(p, end, v, fmt, prec);
+    if (r.ec != std::errc() || r.ptr == end) return nullptr;
+    *r.ptr = sep;
+    return r.ptr + 1;
+}
+#endif
 
 int64_t m8_format_rows(
     int64_t n,
@@ -188,17 +227,37 @@ int64_t m8_format_rows(
     for (int64_t i = 0; i < n; i++) {
         int64_t q0 = qoff[qrow[i]], qn = qoff[qrow[i] + 1] - q0;
         int64_t s0 = soff[srow[i]], sn = soff[srow[i] + 1] - s0;
-        // worst-case numeric tail < 160 bytes
-        if (pos + qn + sn + 160 > cap) return -1;
+        if (pos + qn + sn + M8_TAIL > cap) return -1;
         memcpy(out + pos, qarena + q0, qn); pos += qn;
         out[pos++] = '\t';
         memcpy(out + pos, sarena + s0, sn); pos += sn;
-        pos += snprintf(
-            out + pos, 160,
+#ifdef GHOSTM_M8_TO_CHARS
+        using std::chars_format;
+        char* p = out + pos;
+        char* const end = p + M8_TAIL - 1;
+        *p++ = '\t';
+        p = put_float(p, end, pident[i], chars_format::fixed, 2, '\t');
+        p = put_int(p, end, length[i], '\t');
+        p = put_int(p, end, mismatch[i], '\t');
+        p = put_int(p, end, gapopen[i], '\t');
+        p = put_int(p, end, qs[i], '\t');
+        p = put_int(p, end, qe[i], '\t');
+        p = put_int(p, end, ss[i], '\t');
+        p = put_int(p, end, se[i], '\t');
+        p = put_float(p, end, evalue[i], chars_format::scientific, 2, '\t');
+        p = put_float(p, end, bits[i], chars_format::fixed, 1, '\n');
+        if (!p) return -1;
+        pos = p - out;
+#else
+        int w = snprintf(
+            out + pos, M8_TAIL,
             "\t%.2f\t%d\t%d\t%d\t%lld\t%lld\t%lld\t%lld\t%.2e\t%.1f\n",
             pident[i], length[i], mismatch[i], gapopen[i],
             (long long)qs[i], (long long)qe[i], (long long)ss[i],
             (long long)se[i], evalue[i], bits[i]);
+        if (w < 0 || w >= M8_TAIL) return -1;
+        pos += w;
+#endif
     }
     return pos;
 }

@@ -2,13 +2,18 @@
 of the C++, built by g++ into build/native/) against its Python / numpy
 paths and against the JAX package on the same seeded inputs: the
 counting-sort seed index, the keep mask, the FASTA reader, the m8 row
-formatter (byte for byte, e-values that round across a decade and
-non-ASCII utf-8 names included) and write_hits through a SubjectNames.
+formatter (byte for byte: e-values that round across a decade, non-ASCII
+utf-8 names, exact ties, neighbours of rounding boundaries, signed zeros,
+subnormal and infinite e-values, integer extremes; its to_chars and
+snprintf branches; no write past its buffer) and write_hits through a
+SubjectNames.
 Tolerance: exact equality (arrays and bytes)."""
 
+import ctypes
 import io
 import logging
 import os
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -144,34 +149,192 @@ def _m8_columns(rng, n):
     return pid, ints, i64s, ev, bits
 
 
-def test_m8_format_fuzz_matches_python(lib, rng):
-    """C printf reproduces CPython's f-string bytes for every column
-    format, utf-8 names included; the JAX package's formatter (where its
-    library loads) writes the same bytes."""
-    n = 4096
-    pid, ints, i64s, ev, bits = _m8_columns(rng, n)
+def _around(*xs):
+    """Each x with its float64 neighbours either side."""
+    x = np.array(xs, np.float64)
+    return np.concatenate([np.nextafter(x, -np.inf), x,
+                           np.nextafter(x, np.inf)])
+
+
+def _edge_columns(case, rng):
+    """The m8 columns of one edge case, each list cycled to the longest:
+    (pident, three int32 columns, four int64 columns, evalue, bits)."""
+    k = np.arange(1601, dtype=np.float64)
+    ints = [rng.integers(0, 100, 8).astype(np.int32) for _ in range(3)]
+    i64s = [rng.integers(-2**40, 2**40, 8).astype(np.int64)
+            for _ in range(4)]
+    pid = ev = bits = np.array([1.0])
+    if case == "ties":   # exact binary ties at each column's precision
+        pid = np.concatenate([k[:801] / 8, k / 16, [2.5, 0.125, 0.375]])
+        ev = np.concatenate([k[1:] / 8, k[1:] / 16, k[1:] / 1024])
+        bits = np.concatenate([k / 4, [2.5, 0.125, 0.375]])
+    elif case == "neighbours":   # either side of a rounding boundary
+        pid = _around(0.005, 0.015, 0.125, 2.675, 49.995, 50.005, 99.995)
+        ev = _around(9.995e-10, 9.9951e-5, 1.005e-5, 2.5e-3, 0.0099995,
+                     9.995, 99.95, 9.995e+99)
+        bits = _around(0.05, 0.15, 0.25, 99.95, 123.45, 999.95)
+    elif case == "zeros_and_signs":
+        pid = np.array([0.0, -0.0, -0.001, -0.004999, 100.0])
+        ev = np.array([0.0, -0.0, 5e-324, 2.5e-310, 2.2250738585072014e-308,
+                       np.inf, 1e+100, 1e-100, 1e-300, 1e-320,
+                       1.7976931348623157e308])
+        bits = np.array([0.0, -0.0, -0.04, -0.05, -0.01, -0.0499])
+    elif case == "int_extremes":   # row 0: every integer at its minimum
+        i32 = np.array([-2**31, 2**31 - 1, 0, -1, 1], np.int32)
+        i64 = np.array([-2**63, 2**63 - 1, 0, -1, 2**31, -2**31 - 1],
+                       np.int64)
+        ints, i64s = [i32] * 3, [i64] * 4
+    cols = (pid, *ints, *i64s, ev, bits)
+    n = max(len(c) for c in cols)
+    return tuple(np.resize(c, n) for c in cols)
+
+
+M8_CASES = ["random", "ties", "neighbours", "zeros_and_signs",
+            "int_extremes"]
+
+
+def _m8_case(case):
+    """(query names, subject names, qrow, srow, the ten numeric columns)
+    of one case of the formatter's fuzz; utf-8 names in "random"."""
+    rng = np.random.default_rng(0)
+    if case == "random":
+        pid, ints, i64s, ev, bits = _m8_columns(rng, 4096)
+        cols = (pid, *ints, *i64s, ev, bits)
+    else:
+        cols = _edge_columns(case, rng)
+    n = len(cols[0])
     qnames = [f"q{i}" + ("_é" if i % 7 == 0 else "") for i in range(n)]
     snames = [f"subj_{i}" + ("_名前" if i % 5 == 0 else "")
               for i in range(n)]
+    qrow = np.arange(n, dtype=np.int32)
+    return qnames, snames, qrow, qrow[::-1].copy(), cols
+
+
+def _py_m8(qnames, snames, qrow, srow, cols):
+    """The rows as report.write_hits's Python loop writes them."""
+    return "".join(
+        f"{qnames[q]}\t{snames[s]}\t{p:.2f}\t{ln}\t{mm}\t{go}\t{qs}\t{qe}\t"
+        f"{ss}\t{se}\t{e:.2e}\t{b:.1f}\n"
+        for q, s, p, ln, mm, go, qs, qe, ss, se, e, b in zip(
+            qrow.tolist(), srow.tolist(), *(c.tolist() for c in cols)))
+
+
+def _c_m8(fmt, case):
+    """(the rows through `fmt`, a native.m8_format-like formatter, the
+    rows as the Python loop writes them) for one case."""
+    qnames, snames, qrow, srow, cols = _m8_case(case)
     qarena, qoff = _name_arena(qnames)
     sarena, soff = _name_arena(snames)
-    idx = np.arange(n, dtype=np.int32)
-    srow = idx[::-1].copy()
-    cols = (pid, ints[0], ints[1], ints[2], *i64s, ev, bits)
-    got = lib.m8_format(idx, qarena, qoff, srow, sarena, soff, *cols)
-    want = "".join(
-        f"{qnames[i]}\t{snames[srow[i]]}\t{pid[i]:.2f}\t{ints[0][i]}\t"
-        f"{ints[1][i]}\t{ints[2][i]}\t{i64s[0][i]}\t{i64s[1][i]}\t"
-        f"{i64s[2][i]}\t{i64s[3][i]}\t{ev[i]:.2e}\t{bits[i]:.1f}\n"
-        for i in range(n)
-    )
+    got = fmt(qrow, qarena, qoff, srow, sarena, soff, *cols)
+    return got, _py_m8(qnames, snames, qrow, srow, cols)
+
+
+@pytest.mark.parametrize("case", M8_CASES)
+def test_m8_format_fuzz_matches_python(lib, case):
+    """The C formatter reproduces CPython's f-string bytes for every column
+    format, utf-8 names included: random rows, exact binary ties at each
+    precision, float64 neighbours of rounding boundaries, signed zeros,
+    subnormal, infinite and 3-digit-exponent e-values, and int32 / int64
+    extremes. The JAX package's formatter (where its library loads) writes
+    the same bytes."""
+    got, want = _c_m8(lib.m8_format, case)
     assert got.decode() == want
-    assert "1.00e-09" in want   # the decade case is in the data
-    ref = jnative.m8_format(idx, qarena, qoff, srow, sarena, soff, *cols)
+    if case == "random":
+        assert "1.00e-09" in want   # the decade case is in the data
+    if case == "zeros_and_signs":
+        assert "\t-0.00\t" in want and "\t-0.0\n" in want
+        assert "\tinf\t" in want and "\t4.94e-324\t" in want
+        assert "\t1.00e+100\t" in want and "\t1.00e-300\t" in want
+    if case == "ties":
+        assert "\t0.12\t" in want and "\t1.12e+00\t" in want
+    ref, _ = _c_m8(jnative.m8_format, case)
     if ref is not None:
         assert got == ref
-    assert lib.m8_format(idx[:0], qarena, qoff, srow[:0], sarena, soff,
+
+
+def test_m8_format_empty_call(lib):
+    """No rows: b"" without a call into C."""
+    qnames, snames, qrow, srow, cols = _m8_case("ties")
+    qarena, qoff = _name_arena(qnames)
+    sarena, soff = _name_arena(snames)
+    assert lib.m8_format(qrow[:0], qarena, qoff, srow[:0], sarena, soff,
                          *(c[:0] for c in cols)) == b""
+
+
+def _wide_rows(col, value):
+    """native.m8_format's arguments for two rows, the second with column
+    `col` ("pident" or "bits") set to `value`."""
+    qarena, qoff = _name_arena(["q0", "q1"])
+    sarena, soff = _name_arena(["s0", "s1"])
+    rows = np.arange(2, dtype=np.int32)
+    i4, i8 = np.ones(2, np.int32), np.ones(2, np.int64)
+    f8 = {c: np.ones(2) for c in ("pident", "evalue", "bits")}
+    f8[col][1] = value
+    return (rows, qarena, qoff, rows, sarena, soff, f8["pident"], i4, i4,
+            i4, i8, i8, i8, i8, f8["evalue"], f8["bits"])
+
+
+def _raw_m8(clib, args, slack=64):
+    """m8_format_rows called directly with the cap native.m8_format gives,
+    into a buffer `slack` bytes longer filled with 0xAB: (returned, the
+    buffer's bytes, cap)."""
+    qrow, qarena, qoff, srow, sarena, soff, *cols = args
+    cap = len(qarena) + len(sarena) + 160 * len(qrow)
+    buf = ctypes.create_string_buffer(b"\xab" * (cap + slack))
+    p = ctypes.c_void_p
+    w = clib.m8_format_rows(
+        len(qrow), qrow.ctypes.data_as(p), qarena, qoff.ctypes.data_as(p),
+        srow.ctypes.data_as(p), sarena, soff.ctypes.data_as(p),
+        *(c.ctypes.data_as(p) for c in cols), buf, cap)
+    return w, buf.raw[: cap + slack], cap
+
+
+@pytest.mark.parametrize("col", ["pident", "bits"])
+def test_m8_format_value_too_wide_raises(lib, col):
+    """A value whose fixed notation cannot fit the row's reserve (1e200:
+    201 digits) makes m8_format_rows return -1, which native.m8_format
+    raises as RuntimeError, and nothing is written past the cap; a wide
+    value that fits (1e20) is written whole."""
+    w, raw, cap = _raw_m8(lib._lib, _wide_rows(col, 1e200))
+    assert w == -1 and raw[cap:] == b"\xab" * 64
+    with pytest.raises(RuntimeError, match="m8_format_rows"):
+        lib.m8_format(*_wide_rows(col, 1e200))
+    got = lib.m8_format(*_wide_rows(col, 1e20))
+    assert b"\t100000000000000000000.0" in got and b"\0" not in got
+
+
+def _has_to_chars(cxx):
+    """Whether the compiler's C++ library has floating-point to_chars."""
+    r = subprocess.run([cxx, "-std=c++17", "-E", "-x", "c++", "-"],
+                       input="#include <charconv>\n__cpp_lib_to_chars\n",
+                       capture_output=True, text=True, check=True)
+    last = r.stdout.strip().splitlines()[-1]
+    return last != "__cpp_lib_to_chars" and int(last.rstrip("L")) >= 201611
+
+
+def test_m8_format_snprintf_fallback_same_bytes(lib, tmp_path, monkeypatch):
+    """The snprintf loop, which a compiler without floating-point to_chars
+    builds (-DGHOSTM_M8_SNPRINTF forces it here; built into tmp_path),
+    writes the bytes of the default build on every fuzz case and refuses
+    the same too-wide value; the default build calls to_chars exactly when
+    the compiler's library has it."""
+    cxx = os.environ.get("CXX", "g++")
+    default = Path(lib._lib._name).read_bytes()
+    assert (b"to_chars" in default) == _has_to_chars(cxx)
+    want = {case: _c_m8(lib.m8_format, case)[0] for case in M8_CASES}
+    monkeypatch.setattr(native, "CXXFLAGS",
+                        native.CXXFLAGS + ("-DGHOSTM_M8_SNPRINTF",))
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "_tried", False)
+    monkeypatch.setattr(native, "_lib", None)
+    assert native.available()
+    path = Path(native._lib._name)
+    assert path.parent == tmp_path
+    assert b"to_chars" not in path.read_bytes()
+    for case in M8_CASES:
+        assert _c_m8(native.m8_format, case)[0] == want[case], case
+    w, raw, cap = _raw_m8(native._lib, _wide_rows("bits", 1e200))
+    assert w == -1 and raw[cap:] == b"\xab" * 64
 
 
 def _hits(seed=7, R=128, K=5, nsub=500):
