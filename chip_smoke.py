@@ -47,12 +47,12 @@ Phases, each printing one JSON line ({"phase": ...}):
   golden_b50  the same index through `aln --matrix BLOSUM50 --gap-open 13
            --gap-extend 2` (the score-fed path, B5), byte-compared with
            tests/golden/config1_b50_hits.tsv;
-  golden_tables_{merged,loop,aligned}  the config-1 golden past the one
+  golden_tables_{merged,loop,cap}  the config-1 golden past the one
            direct table: `db --shards 2` searched by default (merged at
            init), with GHOSTM_TPU_MERGE_COLOCATED=0 (the per-shard loop:
            B3 twice, B4's 3-key select rows), and the 1-shard index with
-           GHOSTM_TPU_DIRECT_TABLE_CAP=1024 (aligned tables, in a process
-           of its own); each byte-compared with config1_hits.tsv;
+           GHOSTM_TPU_DIRECT_TABLE_CAP=1024 (CSR tables, in a process of
+           its own); each byte-compared with config1_hits.tsv;
   golden_debug_{check,sync,profile}  the config-1 golden through the
            port's `aln` (cli.main, the entry of `python -m
            ghostm_tpu_torch`) on CUDA in a process of its own, three more
@@ -963,13 +963,14 @@ def time_refine(root: str) -> None:
 
 def golden_phase(prefix: str, tag: str, flags, gold: str, need,
                  forbid=(), reads: str = "config1_reads.fa", env=None,
-                 **extra):
+                 table_mode=None, **extra):
     """`aln --device cuda` with `flags` through the port's CLI over the
     index `prefix` and tests/golden/`reads`, byte-compared with
     tests/golden/`gold`; the kernels in `need` must launch in that run,
     those in `forbid` must not. env: the run goes to a process of its own
-    (TABLES_CHILD) with these variables set, its launch counts read back
-    from it."""
+    (TABLES_CHILD) with these variables set, its launch counts and its
+    engine's table mode read back from it; table_mode: the mode that
+    child's engine must take."""
     from ghostm_tpu_torch.cli import main as cli
     from ghostm_tpu_torch.kernels import _build
 
@@ -994,6 +995,9 @@ def golden_phase(prefix: str, tag: str, flags, gold: str, need,
             child = json.loads(res.stdout.strip().splitlines()[-1])
             if child["rc"] != 0:
                 raise SystemExit(f"{tag}: aln failed")
+            if table_mode not in (None, child["table_mode"]):
+                raise SystemExit(f"{tag}: {child['table_mode']} seed "
+                                 f"tables, want {table_mode}")
             launches = child.pop("launches")
             shapes = {(k, *map(tuple, xs)): v
                       for k, xs, v in child.pop("shapes")}
@@ -1023,8 +1027,8 @@ def golden_tables(prefix: str, d: str) -> dict:
     the shards at init: B4 never ranks the select), with
     GHOSTM_TPU_MERGE_COLOCATED=0 (the per-shard loop: B3 twice, B4's
     3-key select rows (3, 768, 16)), and the 1-shard index `prefix` with
-    GHOSTM_TPU_DIRECT_TABLE_CAP=1024 (aligned tables; a process of its
-    own). Each byte-identical to config1_hits.tsv."""
+    GHOSTM_TPU_DIRECT_TABLE_CAP=1024 (CSR tables; a process of its own).
+    Each byte-identical to config1_hits.tsv."""
     from ghostm_tpu_torch.cli import main as cli
     from ghostm_tpu_torch.config import Config
     from ghostm_tpu_torch.engine import SearchEngine
@@ -1059,13 +1063,13 @@ def golden_tables(prefix: str, d: str) -> dict:
             raise SystemExit(f"{tag}: B4's 3-key select launched "
                              f"{shapes.get(select, 0)} times, B3 "
                              f"{launches['sw_fused']}")
-    tag = "golden_tables_aligned"
+    tag = "golden_tables_cap"
     runs[tag] = golden_phase(
         prefix, tag, ["--batch", "128"], "config1_hits.tsv", need,
-        env={"GHOSTM_TPU_DIRECT_TABLE_CAP": "1024"})
+        env={"GHOSTM_TPU_DIRECT_TABLE_CAP": "1024"}, table_mode="csr")
     rows = (768, 40 * load_index(prefix).expand_width)   # all 40 positions
     if runs[tag][1].get(("sort_vote_rank_rows", rows)) != 1:
-        raise SystemExit(f"{tag}: no aligned key rows {rows}")
+        raise SystemExit(f"{tag}: no CSR key rows {rows}")
     return runs
 
 

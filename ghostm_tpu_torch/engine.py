@@ -26,13 +26,15 @@ A CUDA engine launches the kernels; a CPU engine (device="cpu", the tests)
 runs their plain versions. Both return the same integers as the JAX
 package's engine, on any index it runs on one device.
 
-Seed tables (`build_key_tables`), fastest first and one mode for every
-shard: "direct" (one table row per k-mer), "aligned" (bucket-aligned rows
-and a row/count lookup) where a packed value would reach DIRECT_SENT or
-the table would pass DIRECT_TABLE_CAP (split over the shards), and "csr"
-(position-parallel row/offset tables) where the aligned packing overflows
-int32 too, as one long subject makes it. Shards on one device are merged
-into one at init while the merged index still takes the direct table
+Seed tables (`build_key_tables`), one mode for every shard: "direct" (one
+table row per k-mer), else "csr" (position-parallel row/offset tables)
+where a packed value would reach DIRECT_SENT, as one long subject makes
+it, or the table would pass DIRECT_TABLE_CAP (split over the shards). The
+JAX package's third layout, bucket-aligned rows, gives the vote CSR's keys
+value for value while its row/count word holds every bucket's count (past
+that it reads a wrong row and count: fault F8 of the JAX package), so an
+index it would take runs on CSR. Shards on one device are merged into one
+at init while the merged index still takes the direct table
 (`_merge_fits_direct`; GHOSTM_TPU_MERGE_COLOCATED=0 keeps the loop).
 
 A CUDA engine refuses bands above 128, the widest its SW kernels take,
@@ -42,9 +44,7 @@ Pitfalls of the translation from JAX, handled below:
   * gathers: JAX clamps an out-of-range gather index silently (and jnp
     indexing first wraps an index in [-n, -1] to idx + n); torch raises on
     the CPU and faults on CUDA. Every gather index is clamped as JAX would
-    clamp it (table rows, seed positions, subject rows, frames), and the
-    one index a corrupt table can make negative, the aligned table's row,
-    is wrapped first (`_jax_index`).
+    clamp it (table rows, seed positions, subject rows, frames).
   * int32: JAX without x64 computes in int32 and torch.arange defaults to
     int64. The packed vote keys, the packed top-k and the transport words
     rely on int32 arithmetic, so every such tensor is made int32 (torch's
@@ -58,7 +58,7 @@ Pitfalls of the translation from JAX, handled below:
 Debug checks (CLI --check, --debug-nans): `search_batch_checked` runs
 propose, select, align and rank with `check=True`, which asserts before
 each gather that the JAX package runs unclamped (where its checkify pass
-fails an out-of-bounds index: the seed tables' row, row/count and bucket
+fails an out-of-bounds index: the direct table's row and the CSR bucket
 gathers of propose) that the index is in bounds, and raises naming the
 site. Every stage's floating outputs are checked for NaN there, and in
 every step while the process-wide switch `DEBUG_NANS` is on (CLI
@@ -136,12 +136,6 @@ def check_codes(codes: np.ndarray, what: str) -> None:
     c = np.asarray(codes)
     if c.size and (int(c.min()) < 0 or int(c.max()) >= ALPHA):
         raise ValueError(f"{what} holds residue codes outside [0, {ALPHA})")
-
-
-def _jax_index(idx: torch.Tensor, n: int) -> torch.Tensor:
-    """The row a JAX gather of `n` rows reads at int index `idx`: wrapped
-    from [-n, -1] as jnp indexing wraps it, then clamped into [0, n)."""
-    return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -231,47 +225,6 @@ def seed_key_tables(index: StackedIndex, shard: int, nbins: int):
     return rowbase, localoff
 
 
-def aligned_key_tables(index: StackedIndex, shard: int, nbins: int,
-                       half: int, Lq: int, width: int, build: bool = True):
-    """Bucket-ALIGNED key table: bucket k's packed values
-    (row * nbins * half + localoff + Lq) start at row astart[k] // width of
-    the (R, width) table, and aux[k] = (astart[k] // width) << cbits |
-    count[k] gives the row and the count in one gather. Returns (tab2d
-    int32, aux int32 (nb + 2,), fits); fits=False when the int32 packing
-    would overflow (the caller falls back to the CSR tables). build=False:
-    only the check, (None, None, fits)."""
-    sd = index.shards[shard].seeds
-    st = index.shards[shard].store
-    bs = np.asarray(sd.bucket_starts, np.int64)
-    pos = np.asarray(sd.positions)
-    P = len(pos)
-    counts = np.diff(bs)                      # (nb + 1,)
-    padw = -(-counts // width) * width
-    astart = np.zeros(len(bs), np.int64)
-    np.cumsum(padw, out=astart[1:])
-    nrows_need = max(1, -(-index.expand_width // width))
-    total = int(astart[-1])
-    mult = nbins * half
-    cbits = int(width).bit_length()           # count in [0, width]
-    r_max = (total // width) + nrows_need
-    fits = (
-        len(st.buffer) < (1 << 31)
-        and _packed_value_bound(st, mult, Lq) < (1 << 31)
-        and ((r_max << cbits) | width) < (1 << 31)
-    )
-    if not fits or not build:
-        return None, None, fits
-    tab = np.zeros(total + nrows_need * width, np.int32)
-    if P:
-        vals = _packed_valmap(st, mult, Lq)[pos]
-        dshift = (astart[:-1] - bs[:-1]).astype(np.int32)
-        dst = np.arange(P, dtype=np.int32) + np.repeat(dshift, counts)
-        tab[dst] = vals
-    aux = ((astart // width) << cbits) | np.concatenate(
-        [counts, np.zeros(1, np.int64)])
-    return tab.reshape(-1, width), aux.astype(np.int32), True
-
-
 def direct_key_tables(index: StackedIndex, shard: int, nbins: int, half: int,
                       Lq: int, width: int, cap_bytes: int = DIRECT_TABLE_CAP,
                       build: bool = True):
@@ -307,21 +260,19 @@ def direct_key_tables(index: StackedIndex, shard: int, nbins: int, half: int,
 
 
 def build_key_tables(index: StackedIndex, nbins: int, half: int, Lq: int,
-                     width: int, expand: int, colocated_shards: bool = True,
+                     expand: int, colocated_shards: bool = True,
                      shards=None):
     """The (tab_main, tab_aux) of each shard in `shards` (default: all)
     and the one layout mode every shard of the index shares: (maps, mode,
-    width_used), as the JAX package returns them. Fastest first: "direct"
-    (row width pow2 >= expand, >= 8; tab_aux a 1-element dummy) while
-    every shard's table fits its share of DIRECT_TABLE_CAP and the
-    DIRECT_SENT packing; else "aligned" at `width` (the engine's
-    stepped-down row width) while every shard's packing fits int32; else
-    "csr", each shard's (rowbase, localoff) from seed_key_tables.
-    colocated_shards: every shard's table lives on one device, so the cap
-    is split n_shards ways; False (a grid: a device a shard) gives each
-    shard the whole cap. The mode is decided over every shard of the
-    index, whichever are built, so that every rank of a grid takes the
-    same one."""
+    width), width the slots one query position reads. "direct" (row width
+    pow2 >= expand, >= 8; tab_aux a 1-element dummy) while every shard's
+    table fits its share of DIRECT_TABLE_CAP and the DIRECT_SENT packing;
+    else "csr" at width `expand`, each shard's (rowbase, localoff) from
+    seed_key_tables. colocated_shards: every shard's table lives on one
+    device, so the cap is split n_shards ways; False (a grid: a device a
+    shard) gives each shard the whole cap. The mode is decided over every
+    shard of the index, whichever are built, so that every rank of a grid
+    takes the same one."""
     n_shards = index.buffers.shape[0]
     shards = range(n_shards) if shards is None else list(shards)
     dw = 8
@@ -333,34 +284,7 @@ def build_key_tables(index: StackedIndex, nbins: int, half: int, Lq: int,
         return [(direct_key_tables(index, i, nbins, half, Lq, dw,
                                    cap_bytes=cap)[0], np.zeros(1, np.int32))
                 for i in shards], "direct", dw
-    if all(aligned_key_tables(index, i, nbins, half, Lq, width,
-                              build=False)[2] for i in range(n_shards)):
-        return [aligned_key_tables(index, i, nbins, half, Lq, width)[:2]
-                for i in shards], "aligned", width
-    return [seed_key_tables(index, i, nbins) for i in shards], "csr", width
-
-
-def padded_total(index: StackedIndex, width: int) -> int:
-    """Total bucket-aligned table entries over all shards at a row width."""
-    total = 0
-    for sh in index.shards:
-        counts = np.diff(np.asarray(sh.seeds.bucket_starts, np.int64))
-        total += int((-(-counts // width) * width).sum())
-    return total
-
-
-def aligned_width(index: StackedIndex) -> int:
-    """The aligned table's row width: pow2 >= the expansion (>= 64), then
-    halved (down to 32) while bucket padding holds more than twice the
-    raw positions (whole-row gathers cover the expansion in
-    ceil(expand / width) gathers)."""
-    width = 64
-    while width < index.expand_width:
-        width *= 2
-    raw = max(1, sum(len(sh.seeds.positions) for sh in index.shards))
-    while width > 32 and padded_total(index, width) > 2 * raw:
-        width //= 2
-    return width
+    return [seed_key_tables(index, i, nbins) for i in shards], "csr", expand
 
 
 def diag_bins(cfg: Config, index: StackedIndex) -> int:
@@ -373,13 +297,12 @@ def diag_bins(cfg: Config, index: StackedIndex) -> int:
 def key_tables_for(cfg: Config, index: StackedIndex,
                    colocated_shards: bool = True, shards=None):
     """The (maps, mode, width) triple a SearchEngine on (cfg, index) builds
-    (build_key_tables at its bins and aligned width); `key_table=` of a
-    second engine on the same index. A grid rank's engine takes
-    colocated_shards=False and its own shard."""
+    (build_key_tables at its bins); `key_table=` of a second engine on the
+    same index. A grid rank's engine takes colocated_shards=False and its
+    own shard."""
     return build_key_tables(index, diag_bins(cfg, index),
                             cfg.band_width // 2, cfg.query_frame_len,
-                            aligned_width(index), index.expand_width,
-                            colocated_shards, shards)
+                            index.expand_width, colocated_shards, shards)
 
 
 def _merge_fits_direct(index: StackedIndex, cfg: Config) -> bool:
@@ -444,27 +367,23 @@ def propose_shard(
     mode (build_key_tables): "direct" gathers one (table_width,) row of
     packed values a k-mer, valid below DIRECT_SENT, over the first
     Lq - seed_len + 1 positions (the last seed_len - 1 never host a
-    k-mer); "aligned" gathers the k-mer's row/count word from tab_aux,
-    then ceil(expand / table_width) whole rows from tab_main, the first
-    `count` values valid; "csr" reads the bucket's start and count from
-    bucket_starts and the keys rowbase + (localoff - qpos + Lq) // half
-    from tab_main (rowbase) and tab_aux (localoff) at each of the
-    `expand` slots. The last two run every query position, as in the
-    JAX package.
+    k-mer); "csr" reads the bucket's start and count from bucket_starts
+    and the keys rowbase + (localoff - qpos + Lq) // half from tab_main
+    (rowbase) and tab_aux (localoff) at each of the `expand` slots, over
+    every query position, as in the JAX package.
 
     Chunked over query frames with the JAX package's minimal-pad chunk
     sizing so the expanded (chunk, Lq, width) key tensor stays ~128 MB and
     the kernels see its shapes ((6144, 4608) keys at config-2, direct).
 
-    presorted_run > 1 (direct: table_width; aligned: expand when it is a
-    power of two >= 8): each (qpos, bucket) run of a key row is ascending
-    by construction; odd qpos runs are flipped to descending so the
-    bitonic kernels skip their first log2(run) stages. The sorted row is
-    the same either way.
+    presorted_run > 1 (direct: table_width): each (qpos, bucket) run of a
+    key row is ascending by construction; odd qpos runs are flipped to
+    descending so the bitonic kernels skip their first log2(run) stages.
+    The sorted row is the same either way.
 
     check: assert that every index of the gathers the JAX package runs
-    unclamped (the direct table row, the aligned row/count word and rows,
-    the CSR bucket bounds) is in bounds (`_check_index`)."""
+    unclamped (the direct table row, the CSR bucket bounds) is in bounds
+    (`_check_index`)."""
     Qf, Lq = qflat.shape
     dev = qflat.device
     qi = qflat.to(torch.int32)
@@ -492,23 +411,6 @@ def propose_shard(
             tg = tab_main[kflat.clamp(0, nrows - 1).to(torch.int64)]
             tg = tg.reshape(qc.shape[0], Lq_eff, table_width)
             keys = torch.where(tg < DIRECT_SENT, (tg - qpos) // half,
-                               torch.full_like(tg, BIG))
-        elif mode == "aligned":
-            cbits = int(table_width).bit_length()
-            if check:
-                _check_index(kmers, tab_aux.shape[0],
-                             "propose: aligned row/count word")
-            aux = tab_aux[kmers.clamp(0, tab_aux.shape[0] - 1).to(torch.int64)]
-            valid = offs < (aux & ((1 << cbits) - 1))[..., None]
-            r = (aux >> cbits).reshape(-1)
-            rows = []
-            for i in range(-(-expand // table_width)):
-                if check:
-                    _check_index(r + i, nrows, "propose: aligned table row")
-                rows.append(tab_main[_jax_index(r + i, nrows).to(torch.int64)])
-            w2 = rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
-            tg = w2[:, :expand].reshape(qc.shape[0], Lq, expand)
-            keys = torch.where(valid, (tg - qpos) // half,
                                torch.full_like(tg, BIG))
         else:
             km = kmers.to(torch.int64)
@@ -845,15 +747,10 @@ class SearchEngine:
                              f"holds {len(own)}")
         self.key_table = key_table
         # the presorted-run stage skip needs runs that tile power-of-two
-        # blocks of the key row: direct rows always (run = row width),
-        # aligned rows when the expansion is a power of two, CSR rows never
-        e = self.expand
-        self.presorted_run = (
-            self.table_width if self.table_mode == "direct"
-            else e if (self.table_mode == "aligned" and e >= 8
-                       and e & (e - 1) == 0)
-            else 0
-        )
+        # blocks of the key row: direct rows always (run = row width), CSR
+        # rows never
+        self.presorted_run = (self.table_width
+                              if self.table_mode == "direct" else 0)
         dev = self.device
         to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
         self.matrix = to(mat.astype(np.int32))

@@ -545,13 +545,13 @@ def test_engine_cuda_equals_cpu_long_read(dev, tmp_path):
 
 
 @pytest.mark.parametrize("shards,merge,tables", [
-    (1, "1", "aligned"), (1, "1", "csr"), (2, "0", "direct"),
+    (1, "1", "cap"), (1, "1", "csr"), (2, "0", "direct"),
     (2, "0", "csr"), (2, "1", "direct"),
 ])
 def test_engine_cuda_equals_cpu_tables_and_shards(dev, tmp_path, monkeypatch,
                                                   shards, merge, tables):
-    """The golden config-1 index with aligned or CSR seed tables (forced:
-    a 1 KB direct-table cap, a packed-value bound past int32), and at 2
+    """The golden config-1 index with CSR seed tables (forced: a 1 KB
+    direct-table cap, "cap", or a packed-value bound past int32), and at 2
     shards merged at init or through the per-shard loop: the (18, R, K)
     payload on CUDA equals the CPU engine's. The loop's select launches
     B4's 3-key rows, (3, 768, 16); a merged index launches none."""
@@ -566,7 +566,7 @@ def test_engine_cuda_equals_cpu_tables_and_shards(dev, tmp_path, monkeypatch,
     assert cli(["db", "-i", os.path.join(gold, "config1_db.fa"), "-o",
                 prefix, "--shards", str(shards)]) == 0
     monkeypatch.setenv("GHOSTM_TPU_MERGE_COLOCATED", merge)
-    if tables == "aligned":
+    if tables == "cap":
         monkeypatch.setattr(E, "DIRECT_TABLE_CAP", 1024)
     elif tables == "csr":
         monkeypatch.setattr(E, "_packed_value_bound", lambda *a: 1 << 40)
@@ -575,7 +575,7 @@ def test_engine_cuda_equals_cpu_tables_and_shards(dev, tmp_path, monkeypatch,
     _, dna, lens = next(read_batches(os.path.join(gold, "config1_reads.fa"),
                                      128, 120))
     g = E.SearchEngine(cfg, idx, device="cuda")
-    assert g.table_mode == tables
+    assert g.table_mode == ("csr" if tables == "cap" else tables)
     assert g.n_shards == (shards if merge == "0" else 1)
     c = E.SearchEngine(cfg, idx, device="cpu", key_table=g.key_table)
     _build.reset_launches()
@@ -590,17 +590,17 @@ def test_engine_cuda_equals_cpu_tables_and_shards(dev, tmp_path, monkeypatch,
     assert torch.equal(got, want)
 
 
-def _golden_engines(tmp_path, monkeypatch=None, aligned=False):
+def _golden_engines(tmp_path, monkeypatch=None, cap=False):
     """The config-1 golden index, one 128-read batch, a CUDA engine and a
-    CPU engine on the same key tables (aligned ones with a 1 KB direct
-    table cap)."""
+    CPU engine on the same key tables (CSR ones with a 1 KB direct table
+    cap)."""
     from ghostm_tpu_torch import engine as E
     from ghostm_tpu_torch.cli import main as cli
     from ghostm_tpu_torch.config import Config
     from ghostm_tpu_torch.index.diskio import load_index
     from ghostm_tpu_torch.io.fasta import read_batches
 
-    if aligned:
+    if cap:
         monkeypatch.setattr(E, "DIRECT_TABLE_CAP", 1024)
     gold = os.path.join(os.path.dirname(__file__), "golden")
     prefix = str(tmp_path / "idx")
@@ -615,14 +615,13 @@ def _golden_engines(tmp_path, monkeypatch=None, aligned=False):
     return g, c, dna, lens
 
 
-@pytest.mark.parametrize("aligned", [False, True])
-def test_search_batch_checked_cuda(dev, tmp_path, monkeypatch, aligned):
-    """--check's pass on CUDA, through the kernels (B2, B3, B4 launch): the
-    hits equal the CPU engine's checked pass and the CUDA step's; an
-    aligned row/count word corrupted past the table raises naming the
-    site, as on the CPU."""
-    g, c, dna, lens = _golden_engines(tmp_path, monkeypatch, aligned)
-    assert g.table_mode == ("aligned" if aligned else "direct")
+@pytest.mark.parametrize("cap", [False, True])
+def test_search_batch_checked_cuda(dev, tmp_path, monkeypatch, cap):
+    """--check's pass on CUDA, through the kernels (B2, B3, B4 launch), on
+    direct and on CSR tables: the hits equal the CPU engine's checked pass
+    and the CUDA step's."""
+    g, c, dna, lens = _golden_engines(tmp_path, monkeypatch, cap)
+    assert g.table_mode == ("csr" if cap else "direct")
     q = g.translate(dna, lens)
     before = dict(_build.LAUNCHES)
     got = g.search_batch_checked(q)
@@ -635,14 +634,6 @@ def test_search_batch_checked_cuda(dev, tmp_path, monkeypatch, aligned):
     step = g.fetch(g.search_packed(torch.from_numpy(q).to(dev)))
     np.testing.assert_array_equal(step[0], got.score)
     assert got.score.max() > 0
-    if aligned:
-        d = g.shard_dev[0]
-        cbits = int(g.table_width).bit_length()
-        n = d["tab_main"].shape[0]
-        d["tab_aux"] = ((n + 7) << cbits) | (d["tab_aux"] & ((1 << cbits)
-                                                           - 1))
-        with pytest.raises(IndexError, match="aligned table row"):
-            g.search_batch_checked(q)
 
 
 def test_hbm_log_keys_cuda(dev, tmp_path, monkeypatch):

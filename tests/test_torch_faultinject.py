@@ -181,34 +181,25 @@ def small(tmp_path_factory):
     return prefix, dna, lens
 
 
-def _aux_rows(cbits, rows_of):
-    """Corrupt every aligned row/count word's row, keeping its count."""
-    def f(aux, nrows):
-        count = aux & ((1 << cbits) - 1)
-        return ((rows_of(nrows) << cbits) | count).astype(np.int32)
-    return f
-
-
-# (table mode, the array corrupted, the corruption, both raise?)
+# (table mode, the array corrupted, the corruption, the port's raise site
+# where both raise)
 CORRUPT = {
-    "clean": ("direct", None, None, False),
+    "clean": ("direct", None, None, None),
     # packed values past every subject row: the vote clamps the row
     "direct_entry_past_rows": (
         "direct", "tab_main",
-        lambda t, n: np.where(t < tengine.DIRECT_SENT,
-                              np.int32(tengine.DIRECT_SENT - 1), t), False),
-    # aligned row/count words whose row is past the table: unclamped gather
-    "aligned_row_past_table": ("aligned", "tab_aux", "past", True),
-    # a row in [-n, -1]: jnp wraps it to n + row (fault F4)
-    "aligned_row_negative": ("aligned", "tab_aux", "negative", False),
-    "aligned_row_below_table": ("aligned", "tab_aux", "below", True),
+        lambda t: np.where(t < tengine.DIRECT_SENT,
+                           np.int32(tengine.DIRECT_SENT - 1), t), None),
+    # a direct table short of half its rows: unclamped row gathers
+    "direct_table_short": (
+        "direct", "tab_main", lambda t: t[:len(t) // 2].copy(),
+        "propose: direct table row"),
     # seed positions past the buffer (subject-local offsets)
     "csr_position_past_buffer": (
-        "csr", "tab_aux", lambda t, n: (t + (1 << 20)).astype(np.int32),
-        False),
+        "csr", "tab_aux", lambda t: (t + (1 << 20)).astype(np.int32), None),
     # bucket bounds out of order: the CSR index is clamped
     "csr_bucket_starts": (
-        "csr", "bucket_starts", lambda t, n: t[::-1].copy(), False),
+        "csr", "bucket_starts", lambda t: t[::-1].copy(), None),
 }
 
 
@@ -217,12 +208,10 @@ def test_check_raises_where_jax_raises(small, monkeypatch, case):
     """The same corrupted seed tables in the JAX engine (checkify over its
     XLA phases) and in the port's (the step's route with bounds
     asserts): both raise, or both pass and give the same hits."""
-    mode, key, corrupt, raises = CORRUPT[case]
+    mode, key, corrupt, site = CORRUPT[case]
     prefix, dna, lens = small
-    for mod in (jengine, tengine):
-        if mode == "aligned":
-            monkeypatch.setattr(mod, "DIRECT_TABLE_CAP", 1024)
-        elif mode == "csr":
+    if mode == "csr":
+        for mod in (jengine, tengine):
             monkeypatch.setattr(mod, "_packed_value_bound",
                                 lambda *a: 1 << 40)
     jeng = jengine.SearchEngine(JConfig(query_batch=16),
@@ -231,17 +220,9 @@ def test_check_raises_where_jax_raises(small, monkeypatch, case):
                                 tdiskio.load_index(prefix), device="cpu")
     assert jeng.table_mode == teng.table_mode == mode
     if key is not None:
-        ncols = int(teng.table_width).bit_length()
-        nrows = teng.shard_dev[0]["tab_main"].shape[0]
-        if isinstance(corrupt, str):
-            corrupt = _aux_rows(ncols, {
-                "past": lambda n: np.int32(n + 7),
-                "negative": lambda n: np.int32(-3),
-                "below": lambda n: np.int32(-(n + 5)),
-            }[corrupt])
         for d, to in ((jeng.shard_dev[0], jnp.asarray),
                       (teng.shard_dev[0], torch.from_numpy)):
-            d[key] = to(corrupt(np.asarray(d[key]), nrows))
+            d[key] = to(corrupt(np.asarray(d[key])))
     q = jeng.translate(dna, lens)
     np.testing.assert_array_equal(q, teng.translate(dna, lens))
     try:
@@ -252,11 +233,11 @@ def test_check_raises_where_jax_raises(small, monkeypatch, case):
         got, terr = teng.search_batch_checked(q), None
     except IndexError as e:
         got, terr = None, e
-    assert (jerr is not None) == raises, jerr
-    assert (terr is not None) == raises, terr
-    if raises:
+    assert (jerr is not None) == (site is not None), jerr
+    assert (terr is not None) == (site is not None), terr
+    if site is not None:
         assert "out-of-bounds" in str(jerr) or "out of bounds" in str(jerr)
-        assert "propose: aligned table row" in str(terr)
+        assert site in str(terr)
         return
     for f in ("score", "gsid", "frame", "qend", "s_end", "bend", "g0",
               "srow", "shard"):

@@ -257,7 +257,7 @@ def test_grid_ranks_take_one_table_mode(data, grids):
 
 
 def test_grid_mode_decided_over_all_shards(data, monkeypatch):
-    """A shard that fails the direct check sends every rank to the aligned
+    """A shard that fails the direct check sends every rank to the CSR
     tables, also the rank whose own shard would fit; and a grid's shard
     gets the whole direct-table cap where colocated shards split it (the
     JAX package's colocated_shards)."""
@@ -270,7 +270,7 @@ def test_grid_mode_decided_over_all_shards(data, monkeypatch):
         lambda index, shard, *a, **k: ((None, False) if shard == 1
                                        else direct(index, shard, *a, **k)))
     eng = tengine.SearchEngine(cfg, idx, device="cpu", mesh=Mesh(1, 2))
-    assert eng.table_mode == "aligned" and len(eng.shard_dev) == 1
+    assert eng.table_mode == "csr" and len(eng.shard_dev) == 1
     monkeypatch.setattr(tengine, "direct_key_tables", direct)
     maps, mode, w = tengine.key_tables_for(cfg, idx)
     nbytes = maps[0][0].nbytes
@@ -278,10 +278,13 @@ def test_grid_mode_decided_over_all_shards(data, monkeypatch):
     for mod in (tengine, jengine):
         monkeypatch.setattr(mod, "DIRECT_TABLE_CAP", nbytes * 3 // 2)
     args = (tengine.diag_bins(cfg, idx), cfg.band_width // 2,
-            cfg.query_frame_len, tengine.aligned_width(idx), idx.expand_width)
-    for colocated, want in ((True, "aligned"), (False, "direct")):
-        assert tengine.build_key_tables(idx, *args, colocated)[1] == want
-        assert jengine.build_key_tables(jidx, *args, colocated)[1] == want
+            cfg.query_frame_len)
+    e = idx.expand_width     # the JAX package's aligned rows: width 32
+    for colocated, want, jwant in ((True, "csr", "aligned"),
+                                   (False, "direct", "direct")):
+        assert tengine.build_key_tables(idx, *args, e, colocated)[1] == want
+        assert jengine.build_key_tables(jidx, *args, 32, e,
+                                        colocated)[1] == jwant
     eng = tengine.SearchEngine(cfg, idx, device="cpu", mesh=Mesh(1, 2, 1))
     assert eng.table_mode == "direct"
     np.testing.assert_array_equal(eng.shard_dev[0]["tab_main"].numpy(),

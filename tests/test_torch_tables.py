@@ -1,13 +1,14 @@
 """The port's seed-key tables against the JAX package's: the CSR tables
-(seed_key_tables), the bucket-aligned tables (aligned_key_tables), the
-layout fallback of build_key_tables (mode, width and every array), the
-aligned width step-down, propose_shard's aligned and CSR branches on the
-same frames, and the engine's packed (18, R, K) output with aligned and
-with CSR tables. Tables are forced the way the JAX package's tests force
-them: DIRECT_TABLE_CAP lowered (aligned), _packed_value_bound raised
-(CSR), in both engine modules; and, unforced, a database with one
-35,213-aa subject takes the CSR tables (and, at 2 shards, the per-shard
-loop) through both CLIs. Tolerance 0."""
+(seed_key_tables), the layout fallback of build_key_tables (mode, width
+and every array), propose_shard's CSR branch on the same frames, and the
+engine's packed (18, R, K) output with CSR tables. Tables are forced the
+way the JAX package's tests force them, in both engine modules:
+DIRECT_TABLE_CAP lowered, where the JAX package takes its bucket-aligned
+tables and the port its CSR tables (the same keys, value for value, but
+for the JAX package's fault F8), and _packed_value_bound raised (CSR in
+both); and, unforced, a database with one 35,213-aa subject takes the CSR
+tables (and, at 2 shards, the per-shard loop) through both CLIs.
+Tolerance 0."""
 
 import os
 import subprocess
@@ -22,10 +23,7 @@ from ghostm_tpu import engine as jengine
 from ghostm_tpu.cli import main as jcli
 from ghostm_tpu.config import Config as JConfig
 from ghostm_tpu.index import diskio as jdiskio
-from ghostm_tpu.index import seeds as jseeds
-from ghostm_tpu.index import store as jstore
 from ghostm_tpu.io.fasta import read_batches
-from ghostm_tpu.ops.encode import encode_aa
 from ghostm_tpu.ops.translate import six_frame_translate
 from ghostm_tpu_torch import engine as tengine
 from ghostm_tpu_torch.cli import main as tcli
@@ -38,10 +36,14 @@ torch.set_num_threads(1)
 
 GOLD = os.path.join(os.path.dirname(__file__), "golden")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# hits 16: expansion 16, a power of two (aligned rows keep the presorted
-# run); hits 12: expansion 12, no run; hits 64: two 32-wide aligned rows
-# a k-mer (the width steps down below the expansion)
+# hits 16: expansion 16, a power of two (the JAX package's aligned rows
+# keep the presorted run); hits 12: expansion 12, no run; hits 64: two
+# 32-wide aligned rows a k-mer in the JAX package, and at one shard a
+# 64-deep bucket (its fault F8)
 HITS = (16, 12, 64)
+# the JAX package's aligned row width: the narrowest its engine steps
+# down to, so that hits 64 reads two rows a k-mer
+JAX_WIDTH = 32
 
 
 @pytest.fixture(scope="module")
@@ -76,8 +78,9 @@ def indexes(data):
 
 
 def _force(monkeypatch, mode):
-    """Make both engine modules pick `mode` ("aligned": a 1 KB direct-table
-    cap; "csr": a packed-value bound past int32)."""
+    """Force `mode` on the JAX engine module ("aligned": a 1 KB
+    direct-table cap, where the port's takes "csr"; "csr": a packed-value
+    bound past int32), patching both modules alike."""
     for mod in (jengine, tengine):
         if mode == "aligned":
             monkeypatch.setattr(mod, "DIRECT_TABLE_CAP", 1024)
@@ -94,39 +97,37 @@ def _geometry(idx, cfg):
 
 @pytest.mark.parametrize("hits", HITS)
 @pytest.mark.parametrize("shards", [1, 2])
-def test_csr_and_aligned_tables_equal_jax(indexes, hits, shards):
+def test_csr_tables_equal_jax(indexes, hits, shards):
     _, jidx, tidx = indexes[hits, shards]
-    nbins, half, Lq = _geometry(tidx, TConfig())
+    nbins, _, _ = _geometry(tidx, TConfig())
     for i in range(shards):
         for t, j in zip(tengine.seed_key_tables(tidx, i, nbins),
                         jengine.seed_key_tables(jidx, i, nbins)):
             assert t.dtype == j.dtype == np.int32
             np.testing.assert_array_equal(t, j)
-        for width in (32, 64, 128):
-            tt, ta, tok = tengine.aligned_key_tables(tidx, i, nbins, half,
-                                                     Lq, width)
-            jt, ja, jok = jengine.aligned_key_tables(jidx, i, nbins, half,
-                                                     Lq, width)
-            assert tok and jok
-            np.testing.assert_array_equal(tt, jt)
-            np.testing.assert_array_equal(ta, ja)
-            assert tt.dtype == ta.dtype == np.int32
 
 
 @pytest.mark.parametrize("mode", ["direct", "aligned", "csr"])
 @pytest.mark.parametrize("shards", [1, 2])
 def test_build_key_tables_equal_jax(indexes, monkeypatch, mode, shards):
     """Mode, width and every shard's arrays, as build_key_tables returns
-    them in each layout (the width the engine steps down to)."""
+    them in each layout. Where the JAX package takes its aligned tables
+    the port takes the CSR tables, equal to the JAX package's; a CSR
+    table's width is the expansion."""
     _, jidx, tidx = indexes[16, shards]
     _force(monkeypatch, mode)
     nbins, half, Lq = _geometry(tidx, TConfig())
-    width = tengine.aligned_width(tidx)
-    tmaps, tmode, tw = tengine.build_key_tables(tidx, nbins, half, Lq, width,
-                                                tidx.expand_width)
-    jmaps, jmode, jw = jengine.build_key_tables(jidx, nbins, half, Lq, width,
-                                                jidx.expand_width)
-    assert (tmode, tw) == (jmode, jw) and tmode == mode
+    expand = tidx.expand_width
+    tmaps, tmode, tw = tengine.build_key_tables(tidx, nbins, half, Lq,
+                                                expand)
+    jmaps, jmode, jw = jengine.build_key_tables(jidx, nbins, half, Lq,
+                                                JAX_WIDTH, expand)
+    assert jmode == mode
+    if mode == "aligned":
+        jmaps = [jengine.seed_key_tables(jidx, i, nbins)
+                 for i in range(shards)]
+    assert tmode == ("direct" if mode == "direct" else "csr")
+    assert tw == (jw if mode == "direct" else expand)
     assert len(tmaps) == len(jmaps) == shards
     for tm, jm in zip(tmaps, jmaps):
         for t, j in zip(tm, jm):
@@ -146,39 +147,6 @@ def test_merge_fits_direct_equals_jax(indexes, monkeypatch):
                     tidx, TConfig(band_width=band)) == want
 
 
-def test_table_width_guard():
-    """Port of tests/test_index.py::test_table_width_guard: the aligned
-    width steps down to 32 when bucket padding would pass 2x the raw
-    positions, and a dense index keeps the full-expansion width; the same
-    widths as the JAX engine's."""
-    aas = "ARNDCQEGHILKMFPSTWYV"
-    rng = np.random.default_rng(0)
-    cfg = JConfig(seed_len=4, hits_per_seed=64, query_batch=128)
-    diverse = [(f"s{i}", "".join(rng.choice(list(aas), 40)).encode())
-               for i in range(150)]
-    dense = [(f"t{i}", b"ACDEFGHIKL" * 400) for i in range(4)]
-    for records, want in ((diverse, 32), (dense, 64)):
-        keep = jseeds.global_bucket_truncation(
-            [encode_aa(s) for _, s in records], cfg.seed_len,
-            cfg.hits_per_seed)
-        st = jstore.build_store(records, cfg.sentinel_pad,
-                                subject_ids=list(range(len(records))))
-        kb = np.zeros(len(st.buffer), dtype=bool)
-        for r in range(len(records)):
-            kb[st.starts[r]: st.starts[r] + len(keep[r])] = keep[r]
-        shard = jdiskio.IndexShard(
-            st, jseeds.build_seed_index(st.buffer, cfg.seed_len, kb))
-        jidx = jdiskio.stack_shards([shard], cfg.seed_len)
-        tidx = tdiskio.index_from_arrays(jidx)
-        jeng = jengine.SearchEngine(cfg, jidx, use_pallas=False)
-        assert tengine.aligned_width(tidx) == jeng._table_width == want
-        if want == 32:
-            assert (tengine.padded_total(tidx, 32)
-                    < tengine.padded_total(tidx, 64))
-        for w in (32, 64):
-            assert tengine.padded_total(tidx, w) == jeng._padded_total(w)
-
-
 def _frames(data, n=24):
     _, dna, lens = next(read_batches(str(data / "reads.fa"), 64, 120))
     q = six_frame_translate(dna[:n], lens[:n], 40)
@@ -189,75 +157,96 @@ def _frames(data, n=24):
 @pytest.mark.parametrize("hits", HITS)
 def test_propose_shard_branches_equal_jax(data, indexes, monkeypatch, mode,
                                           hits):
-    """propose_shard's aligned and CSR branches (the port's presorted run
-    as its engine sets it) against the JAX propose_shard on the XLA path,
-    shard by shard of a 2-shard index."""
+    """propose_shard's CSR branch (no presorted run, as the port's engine
+    sets it) against the JAX propose_shard on the XLA path, shard by shard
+    of a 2-shard index: on the JAX package's aligned tables (its presorted
+    run where the expansion is a power of two) or on its CSR tables."""
     _, jidx, tidx = indexes[hits, 2]
     _force(monkeypatch, mode)
     cfg = TConfig(hits_per_seed=hits)
     nbins, half, Lq = _geometry(tidx, cfg)
-    width = tengine.aligned_width(tidx)
-    maps, got_mode, tw = tengine.build_key_tables(tidx, nbins, half, Lq,
-                                                  width, tidx.expand_width)
-    assert got_mode == mode
     expand = tidx.expand_width
+    maps, got_mode, tw = tengine.build_key_tables(tidx, nbins, half, Lq,
+                                                  expand)
+    assert (got_mode, tw) == ("csr", expand)
+    jmaps, jmode, jw = jengine.build_key_tables(jidx, nbins, half, Lq,
+                                                JAX_WIDTH, expand)
+    assert jmode == mode
     if mode == "aligned" and hits == 64:
-        assert expand > tw, "want more than one aligned row a k-mer"
+        assert expand > jw, "want more than one aligned row a k-mer"
     run = expand if (mode == "aligned" and expand >= 8
                      and expand & (expand - 1) == 0) else 0
     q = _frames(data)
-    for i, (tab_main, tab_aux) in enumerate(maps):
-        kw = dict(seed_len=3, expand=expand, band=32, ncand=8, min_votes=1,
-                  nbins=nbins, table_width=tw)
+    kw = dict(seed_len=3, expand=expand, band=32, ncand=8, min_votes=1,
+              nbins=nbins)
+    for i, ((tab_main, tab_aux), (jmain, jaux)) in enumerate(zip(maps,
+                                                                jmaps)):
         got = tengine.propose_shard(
             torch.from_numpy(q), torch.from_numpy(tidx.bucket_starts[i]),
             torch.from_numpy(tab_main), torch.from_numpy(tab_aux),
-            torch.from_numpy(tidx.subject_ids[i]), mode=mode,
-            presorted_run=run, **kw)
+            torch.from_numpy(tidx.subject_ids[i]), mode="csr",
+            table_width=tw, **kw)
         want = jengine.propose_shard(
             jnp.asarray(q), jnp.asarray(jidx.bucket_starts[i]),
-            jnp.asarray(tab_main), jnp.asarray(tab_aux),
-            jnp.asarray(jidx.subject_ids[i]),
-            fuse_tables=mode == "aligned", **kw)
+            jnp.asarray(jmain), jnp.asarray(jaux),
+            jnp.asarray(jidx.subject_ids[i]), table_width=jw,
+            presorted_run=run, fuse_tables=mode == "aligned", **kw)
         assert int(want[2].max()) > 0, "no votes: the comparison is vacuous"
         for t, j in zip(got, want):
             np.testing.assert_array_equal(t.numpy(), np.asarray(j))
 
 
 @pytest.mark.parametrize("mode", ["aligned", "csr"])
-@pytest.mark.parametrize("hits", [16, 64])
+@pytest.mark.parametrize("hits", HITS)
 def test_engine_tables_equal_jax(data, indexes, monkeypatch, mode, hits):
-    """The whole step with aligned or CSR tables: the port's (18, R, K)
-    payload equals the JAX engine's."""
+    """The whole step on the port's CSR tables: its (18, R, K) payload
+    equals the JAX engine's on the JAX package's aligned or CSR tables.
+    Fault F8 of the JAX package: its aligned row/count word keeps a
+    bucket's count in bit_length(width) bits, so a bucket of
+    2^bit_length(width) positions or more (hits 64's 64-deep bucket at
+    width 32) reads a wrong row and count. There the JAX engine's aligned
+    payload differs, and the port equals the JAX engine on CSR tables."""
     _, jidx, tidx = indexes[hits, 1]
     _force(monkeypatch, mode)
     _, dna, lens = next(read_batches(str(data / "reads.fa"), 64, 120))
     dna, lens = dna[:40], lens[:40]
-    jeng = jengine.SearchEngine(JConfig(hits_per_seed=hits, query_batch=40),
-                                jidx, use_pallas=False)
+    jcfg = JConfig(hits_per_seed=hits, query_batch=40)
+    jeng = jengine.SearchEngine(jcfg, jidx, use_pallas=False)
     assert jeng.table_mode == mode
     want = np.asarray(jeng.search_refine_async(jeng.translate(dna, lens)))
     teng = tengine.SearchEngine(TConfig(hits_per_seed=hits, query_batch=40),
                                 tidx, device="cpu")
-    assert teng.table_mode == mode
+    assert (teng.table_mode, teng.presorted_run) == ("csr", 0)
     got = teng.step_dna(torch.from_numpy(dna), torch.from_numpy(lens),
                         pack=False).numpy()
     assert got.shape == want.shape == (18, 40, 10)
     assert got[0].max() > 0, "no hits: the comparison is vacuous"
+    deepest = int(np.diff(jidx.bucket_starts[0].astype(np.int64)).max())
+    f8 = (mode == "aligned"
+          and deepest >= 1 << int(jeng._table_width).bit_length())
+    assert f8 == (mode == "aligned" and hits == 64)
+    if f8:
+        assert not np.array_equal(got, want)
+        monkeypatch.setattr(jengine, "_packed_value_bound",
+                            lambda *a: 1 << 40)
+        jeng = jengine.SearchEngine(jcfg, jidx, use_pallas=False)
+        assert jeng.table_mode == "csr"
+        want = np.asarray(jeng.search_refine_async(jeng.translate(dna,
+                                                                  lens)))
     np.testing.assert_array_equal(got, want)
 
 
 def test_direct_table_cap_fallback(tmp_path, monkeypatch):
     """Port of tests/test_index.py::test_direct_table_cap_fallback through
     the port's CLI: with the direct-table cap at 1 KB the engine takes the
-    aligned tables and writes the config-1 golden byte for byte."""
+    CSR tables and writes the config-1 golden byte for byte."""
     prefix = str(tmp_path / "idx")
     assert tcli(["db", "-i", os.path.join(GOLD, "config1_db.fa"), "-o",
                  prefix]) == 0
     monkeypatch.setattr(tengine, "DIRECT_TABLE_CAP", 1024)
     eng = tengine.SearchEngine(TConfig(query_batch=128),
                                tdiskio.load_index(prefix), device="cpu")
-    assert eng.table_mode == "aligned"
+    assert eng.table_mode == "csr"
     out = str(tmp_path / "hits.tsv")
     assert tcli(["aln", "-d", prefix, "-i",
                  os.path.join(GOLD, "config1_reads.fa"), "-o", out,
