@@ -26,6 +26,23 @@ A CUDA engine launches the kernels; a CPU engine (device="cpu", the tests)
 runs their plain versions. Both return the same integers as the JAX
 package's engine, on any index it runs on one device.
 
+CUDA graphs (`search_refine_async_dna` on a CUDA engine of one device):
+every launch of the step has the batch's fixed shape and none waits for
+the host, so each stage of GRAPH_STAGES is captured once a batch shape
+and replayed for every later batch: the first batch of a shape runs
+eager (each kernel's one-time set-up), the second captures, the rest
+replay. A stage is replayed inside the method that runs it (`propose`,
+`align`, `refine_packed`, ...), so a caller's wrapper around one of them
+still wraps its device work. The stages share one memory pool and always
+replay in capture order; the batch's DNA and lengths are copied into the
+graph's static inputs through pinned staging (the step does not wait for
+the device), and the output is cloned out of the static one, since the
+pipeline fetches batch i while batch i + 1 replays. A grid rank, the CPU
+engine, the --check pass and the codes entries run eager.
+Counters: graph_captures, graph_replays (stages), graph_eager (stages a
+CUDA engine ran eager) and last_graph_stages (stages the last batch
+replayed).
+
 Seed tables (`build_key_tables`), one mode for every shard: "direct" (one
 table row per k-mer), else "csr" (position-parallel row/offset tables)
 where a packed value would reach DIRECT_SENT, as one long subject makes
@@ -78,6 +95,7 @@ import torch
 
 from ghostm_tpu_torch.config import Config
 from ghostm_tpu_torch.index.diskio import StackedIndex, merge_shards
+from ghostm_tpu_torch.kernels import _build
 from ghostm_tpu_torch.kernels import candidates as cand_mod
 from ghostm_tpu_torch.kernels import refine as refine_mod
 from ghostm_tpu_torch.kernels import (
@@ -91,6 +109,8 @@ from ghostm_tpu_torch.ops.translate import (
 from ghostm_tpu_torch.utils.metrics import span
 
 NFRAMES = 6
+# the step's stages as step_dna runs them, each its own CUDA graph
+GRAPH_STAGES = ("translate", "propose", "align", "rank", "refine", "pack")
 BIG = 1 << 30
 SORT_NUM_KEYS = 5  # (-score, gsid, frame, qend, s_end) — the tie-break spec
 # Direct-table sentinel: pad slots hold this value; any packed value below
@@ -655,6 +675,42 @@ class BatchHits:
     shard: np.ndarray
 
 
+def graphs_device(device: torch.device) -> bool:
+    """Does a step on `device` run from CUDA graphs? (A CUDA device.)"""
+    return device.type == "cuda"
+
+
+def _signature(args) -> tuple:
+    """What a stage's graph baked in of its arguments: each tensor's
+    address and shape, any other value as it is."""
+    return tuple(
+        _signature(a) if isinstance(a, (tuple, list))
+        else (a.data_ptr(), tuple(a.shape)) if isinstance(a, torch.Tensor)
+        else a for a in args)
+
+
+@dataclasses.dataclass
+class _Stage:
+    """One captured stage: its graph, its static outputs and the
+    signature of the arguments it was captured on."""
+    graph: _build.Replayed
+    out: object
+    signature: tuple
+
+
+@dataclasses.dataclass
+class StepGraphs:
+    """A batch shape's graphed step: its static DNA and lengths (and on a
+    CUDA device their pinned host staging, with the event after the last
+    copy out of it), its stages' memory pool and graphs."""
+    dna: torch.Tensor
+    lens: torch.Tensor
+    host: tuple = ()
+    copied: object = None
+    pool: object = None
+    stages: Dict[str, _Stage] = dataclasses.field(default_factory=dict)
+
+
 class SearchEngine:
     """Host driver: owns the device copies of the index (one dict of
     tensors a shard) and runs the batch step on `device` ("cuda" by
@@ -782,6 +838,93 @@ class SearchEngine:
                 tab_aux=to(tab_aux),
                 srow_identity=n if ident else 0,
             ))
+        # the step's CUDA graphs, by the batch shape whose eager warm-up
+        # batch ran (search_refine_async_dna)
+        self._graphs: Dict[tuple, StepGraphs] = {}
+        self._graphing: StepGraphs | None = None   # set while a step replays
+        self.graph_captures = 0
+        self.graph_replays = 0
+        self.graph_eager = 0
+        self.last_graph_stages = 0
+
+    # ------------------------------------------------------------------
+    # CUDA graphs of the step's stages (module docstring)
+
+    def _graphs_on(self) -> bool:
+        """Does search_refine_async_dna replay graphs? On a CUDA engine of
+        one device (a grid rank's step runs collectives between stages)."""
+        return graphs_device(self.device) and self.mesh is None
+
+    def _stage(self, name: str, fn, *args):
+        """Stage `name` of the step, fn(*args): eager, or inside a graphed
+        step replayed from its graph (the graph's static outputs), which
+        the stage's first call for the batch shape captures."""
+        gs = self._graphing
+        if gs is None:
+            if graphs_device(self.device):
+                self.graph_eager += 1
+            return fn(*args)
+        sig = _signature(args)
+        st = gs.stages.get(name)
+        if st is None:
+            st = gs.stages[name] = self._capture(gs, fn, args, sig)
+        elif st.signature != sig:
+            raise RuntimeError(f"step graph {name}: called on other tensors "
+                               "than it was captured on")
+        with span("step.replay"):
+            st.graph.replay()
+        self.graph_replays += 1
+        return st.out
+
+    def _capture(self, gs: StepGraphs, fn, args, sig) -> _Stage:
+        """fn(*args) captured into a new graph in the shape's pool; the
+        capture runs nothing (thread-local: the flush thread may fetch
+        meanwhile)."""
+        if gs.pool is None:
+            gs.pool = torch.cuda.graph_pool_handle()
+        rg = _build.Replayed(torch.cuda.CUDAGraph())
+        with rg.recording(), torch.cuda.graph(
+                rg.graph, pool=gs.pool, capture_error_mode="thread_local"):
+            out = fn(*args)
+        self.graph_captures += 1
+        return _Stage(rg, out, sig)
+
+    def _stage_in(self, gs: StepGraphs, dna: np.ndarray,
+                  lens: np.ndarray) -> None:
+        """The batch's DNA and lengths into the graph's static inputs, on
+        the current stream. On a CUDA device through the pinned staging,
+        without waiting for the device: the host waits only until the
+        previous batch's copy has left the staging. (On the CPU, which
+        runs no graph but the tests' stand-in, a plain copy.)"""
+        if self.device.type != "cuda":
+            gs.dna.copy_(torch.from_numpy(dna))
+            gs.lens.copy_(torch.from_numpy(lens))
+            return
+        if not gs.host:
+            gs.host = (torch.empty(dna.shape, dtype=gs.dna.dtype,
+                                   pin_memory=True),
+                       torch.empty(lens.shape, dtype=gs.lens.dtype,
+                                   pin_memory=True))
+            gs.copied = torch.cuda.Event()
+        gs.copied.synchronize()
+        for dst, staged, src in zip((gs.dna, gs.lens), gs.host, (dna, lens)):
+            # numpy's copy runs on this thread; torch's would wake its
+            # intra-op thread pool, whose threads then spin beside the flush
+            np.copyto(staged.numpy(), src)
+            dst.copy_(staged, non_blocking=True)
+        gs.copied.record()
+
+    def _graphed_step(self, gs: StepGraphs) -> torch.Tensor:
+        """step_dna on the shape's static inputs, every stage replayed (or
+        captured, then replayed): the static output."""
+        replays = self.graph_replays
+        self._graphing = gs
+        try:
+            out = self.step_dna(gs.dna, gs.lens)
+        finally:
+            self._graphing = None
+        self.last_graph_stages = self.graph_replays - replays
+        return out
 
     # ------------------------------------------------------------------
     def propose_one(self, qflat: torch.Tensor, d: dict,
@@ -802,7 +945,11 @@ class SearchEngine:
     def propose(self, qflat: torch.Tensor, check: bool = False):
         """(R*6, Lq) frames -> selected (gsid, lbin), each (R*6, ncand):
         every shard's proposals side by side, then the global top-ncand.
-        check: propose_shard's bounds asserts and the NaN checks."""
+        check: propose_shard's bounds asserts and the NaN checks. The
+        step's stage "propose"."""
+        return self._stage("propose", self._propose, qflat, check)
+
+    def _propose(self, qflat: torch.Tensor, check: bool):
         props = [self.propose_one(qflat, d, check) for d in self.shard_dev]
         pg, pb, pv = (torch.cat(x, dim=1) for x in zip(*props))
         _check_nans("propose", pg, pb, pv, check=check)
@@ -827,7 +974,11 @@ class SearchEngine:
     def align(self, qflat: torch.Tensor, sel_g: torch.Tensor,
               sel_b: torch.Tensor):
         """Each shard's align_shard over the selected candidates, every
-        field stacked (n_shards, Qf, C)."""
+        field stacked (n_shards, Qf, C). The step's stage "align"."""
+        return self._stage("align", self._align, qflat, sel_g, sel_b)
+
+    def _align(self, qflat: torch.Tensor, sel_g: torch.Tensor,
+               sel_b: torch.Tensor):
         outs = [self.align_one(qflat, d, sel_g, sel_b)
                 for d in self.shard_dev]
         return tuple(torch.stack(x) for x in zip(*outs))
@@ -845,7 +996,8 @@ class SearchEngine:
             aligned = self.align(qflat, sel_g, sel_b)
             _check_nans("align", *aligned, check=check)
         with span("step.rank"):
-            packed = merge_rank(aligned, sel_g, R, self.cfg.max_hits)
+            packed = self._stage("rank", merge_rank, aligned, sel_g, R,
+                                 self.cfg.max_hits)
             _check_nans("rank", packed, check=check)
         return packed
 
@@ -882,35 +1034,40 @@ class SearchEngine:
         (9, R, K) stats, on the device. Each hit's window, span start and
         end come from the shard in its shard field: on a grid rank, the
         rank fetches those of the hits its shard owns and one all_reduce
-        over "db" assembles them (parallel.search.gather_windows)."""
+        over "db" assembles them (parallel.search.gather_windows). The
+        step's stage "refine"."""
         with span("step.refine"):
-            cfg = self.cfg
-            g0 = packed[6].reshape(-1)
-            srow = packed[7].reshape(-1)
-            shard = packed[8].reshape(-1)
-            wlen = cfg.query_frame_len + cfg.band_width
-            if self.mesh is not None:
-                from ghostm_tpu_torch.parallel.search import gather_windows
+            return self._stage("refine", self._refine, qcodes3, packed)
 
-                w, lo, hi = gather_windows(self, g0, srow, shard, wlen)
-            else:
-                for si, d in enumerate(self.shard_dev):
-                    w2, lo2, hi2 = self.windows_of(d, g0, srow, wlen)
-                    if si == 0:
-                        w, lo, hi = w2, lo2, hi2
-                    else:
-                        m = shard == si
-                        w = torch.where(m[:, None], w2, w)
-                        lo = torch.where(m, lo2, lo)
-                        hi = torch.where(m, hi2, hi)
-            # the kernel takes int8 windows (a grid rank's arrive as int32
-            # slices of the all_reduce rows) and contiguous spans
-            return refine_stats_packed(
-                qcodes3, packed, self.matrix, w.to(torch.int8).contiguous(),
-                lo.contiguous(), hi.contiguous(), band=cfg.band_width,
-                gap_open=cfg.gap_open, gap_extend=cfg.gap_extend,
-                table=self.refine_table, table_max=self.refine_table_max,
-            )
+    def _refine(self, qcodes3: torch.Tensor,
+                packed: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        g0 = packed[6].reshape(-1)
+        srow = packed[7].reshape(-1)
+        shard = packed[8].reshape(-1)
+        wlen = cfg.query_frame_len + cfg.band_width
+        if self.mesh is not None:
+            from ghostm_tpu_torch.parallel.search import gather_windows
+
+            w, lo, hi = gather_windows(self, g0, srow, shard, wlen)
+        else:
+            for si, d in enumerate(self.shard_dev):
+                w2, lo2, hi2 = self.windows_of(d, g0, srow, wlen)
+                if si == 0:
+                    w, lo, hi = w2, lo2, hi2
+                else:
+                    m = shard == si
+                    w = torch.where(m[:, None], w2, w)
+                    lo = torch.where(m, lo2, lo)
+                    hi = torch.where(m, hi2, hi)
+        # the kernel takes int8 windows (a grid rank's arrive as int32
+        # slices of the all_reduce rows) and contiguous spans
+        return refine_stats_packed(
+            qcodes3, packed, self.matrix, w.to(torch.int8).contiguous(),
+            lo.contiguous(), hi.contiguous(), band=cfg.band_width,
+            gap_open=cfg.gap_open, gap_extend=cfg.gap_extend,
+            table=self.refine_table, table_max=self.refine_table_max,
+        )
 
     def step_dna(self, dna: torch.Tensor, lens: torch.Tensor,
                  pack: bool = True) -> torch.Tensor:
@@ -919,16 +1076,19 @@ class SearchEngine:
         when the transport cannot hold this config's value ranges, or
         when pack is False)."""
         with span("step.translate"):
-            qcodes3 = six_frame_translate_torch(dna, lens,
-                                                self.cfg.query_frame_len)
+            qcodes3 = self._stage("translate", six_frame_translate_torch,
+                                  dna, lens, self.cfg.query_frame_len)
             _check_nans("translate", qcodes3)
         packed = self.search_packed(qcodes3)
         stats = self.refine_packed(qcodes3, packed)
         _check_nans("refine", stats)
         with span("step.pack"):
-            out = torch.cat([packed, stats])
-            return (self._pack_transport(out) if pack and self._pack_ok
-                    else out)
+            return self._stage("pack", self._pack, packed, stats, pack)
+
+    def _pack(self, packed: torch.Tensor, stats: torch.Tensor,
+              pack: bool) -> torch.Tensor:
+        out = torch.cat([packed, stats])
+        return self._pack_transport(out) if pack and self._pack_ok else out
 
     def search_refine_async_dna(self, dna: np.ndarray,
                                 lens: np.ndarray) -> torch.Tensor:
@@ -939,7 +1099,9 @@ class SearchEngine:
         cfg.query_batch is padded with length-0 reads (all-PAD frames,
         inert) and the pad rows sliced off, as in the JAX package. One
         device's engine only (a grid searches through
-        search_batch_stats)."""
+        search_batch_stats). On a CUDA engine the step's stages replay
+        their graphs from the second batch of a shape on (module
+        docstring), and the output is a clone of the static one."""
         self._no_mesh("search_refine_async_dna")
         R = dna.shape[0]
         Rb = self.cfg.query_batch
@@ -949,11 +1111,24 @@ class SearchEngine:
                     [dna, np.full((Rb - R,) + dna.shape[1:], 4, dna.dtype)]
                 )
                 lens = np.concatenate([lens, np.zeros(Rb - R, lens.dtype)])
-            dna_d = torch.from_numpy(np.ascontiguousarray(dna)).to(
-                self.device)
-            lens_d = torch.from_numpy(np.asarray(lens, np.int32)).to(
-                self.device)
+            dna = np.ascontiguousarray(dna)
+            lens = np.asarray(lens, np.int32)
+            key = (dna.shape, dna.dtype)
+            gs = self._graphs.get(key) if self._graphs_on() else None
+            if gs is None:
+                dna_d = torch.from_numpy(dna).to(self.device)
+                lens_d = torch.from_numpy(lens).to(self.device)
+            else:
+                self._stage_in(gs, dna, lens)
+        if gs is not None:
+            out = self._graphed_step(gs)
+            return (out[:, :R] if R < Rb else out).clone()
         out = self.step_dna(dna_d, lens_d)
+        self.last_graph_stages = 0
+        if self._graphs_on():
+            # the shape's warm-up batch ran: the next one captures
+            self._graphs[key] = StepGraphs(torch.empty_like(dna_d),
+                                           torch.empty_like(lens_d))
         return out[:, :R] if R < Rb else out
 
     # ------------------------------------------------------------------

@@ -14,6 +14,7 @@ host without nvcc or a GPU.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -38,7 +39,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 # Launch counts, one per kernel wrapper: a wrapper adds one where it
 # launches its kernel and nowhere else (a CPU tensor's plain version does
-# not count), so a run can show that its path went through the kernels.
+# not count), so a run can show that its path went through the kernels; a
+# replayed CUDA graph adds the launches its capture recorded (Replayed).
 # SHAPES counts the same launches by (wrapper, input shapes).
 LAUNCHES: Dict[str, int] = dict.fromkeys((
     "sort_rows", "sort_rows_tiles", "sort_rows_merge", "sort_vote_rank_rows",
@@ -58,6 +60,42 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     SHAPES.clear()
+
+
+def _add_counts(launches: Counter, shapes: Counter, sign: int) -> None:
+    for k, v in launches.items():
+        LAUNCHES[k] += sign * v
+    for k, v in shapes.items():
+        SHAPES[k] += sign * v
+        if not SHAPES[k]:
+            del SHAPES[k]
+
+
+class Replayed:
+    """A captured CUDA graph and the kernel launches its capture recorded.
+    A capture runs nothing, so the launches counted while `recording` are
+    taken back out of LAUNCHES and SHAPES; every `replay` adds them again,
+    so the counts say what the device ran, as on the eager path. `graph`
+    is anything with a replay() (torch.cuda.CUDAGraph)."""
+
+    def __init__(self, graph):
+        self.graph = graph
+        self.launches: Counter = Counter()
+        self.shapes: Counter = Counter()
+
+    @contextlib.contextmanager
+    def recording(self):
+        launches0, shapes0 = Counter(LAUNCHES), Counter(SHAPES)
+        try:
+            yield self
+        finally:
+            self.launches = Counter(LAUNCHES) - launches0
+            self.shapes = SHAPES - shapes0
+            _add_counts(self.launches, self.shapes, -1)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        _add_counts(self.launches, self.shapes, 1)
 
 
 def _nvcc() -> str:

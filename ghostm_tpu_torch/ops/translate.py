@@ -67,13 +67,30 @@ RC_LUT_FLAT = CODON_LUT[
 ].reshape(-1)
 
 
+# the two flat LUTs as int8 tensors, by device
+_DEVICE_LUTS: dict = {}
+
+
+def device_luts(dev: torch.device):
+    """(CODON_LUT_FLAT, RC_LUT_FLAT) as int8 tensors on `dev`, copied there
+    once a device: a copy from host memory cannot be captured into a CUDA
+    graph."""
+    luts = _DEVICE_LUTS.get(dev)
+    if luts is None:
+        luts = _DEVICE_LUTS[dev] = tuple(
+            torch.from_numpy(t.astype(np.int8)).to(dev)
+            for t in (CODON_LUT_FLAT, RC_LUT_FLAT))
+    return luts
+
+
 def six_frame_translate_torch(
     dna: torch.Tensor, lengths: torch.Tensor, frame_len: int
 ) -> torch.Tensor:
     """Device twin of six_frame_translate: (R, L) int8 codes + (R,) lengths
     on any device -> (R, 6, frame_len) int8 on the same device,
     bit-identical to the host path and to the JAX package's
-    six_frame_translate_jnp (tests/test_torch_engine.py)."""
+    six_frame_translate_jnp (tests/test_torch_engine.py). No host memory
+    is read: the step's CUDA graph captures it (engine.py)."""
     dev = dna.device
     R, L = dna.shape
     lengths = lengths.to(torch.int64)
@@ -81,8 +98,9 @@ def six_frame_translate_torch(
     # codon index at every forward position (pad tail with N codons)
     cN = torch.cat([c, torch.full((R, 2), 4, dtype=torch.int64, device=dev)], 1)
     idx = (cN[:, :L] * 5 + cN[:, 1 : L + 1]) * 5 + cN[:, 2 : L + 2]
-    fwd_aa = torch.from_numpy(CODON_LUT_FLAT.astype(np.int8)).to(dev)[idx]
-    rc_aa = torch.from_numpy(RC_LUT_FLAT.astype(np.int8)).to(dev)[idx]
+    fwd_lut, rc_lut = device_luts(dev)
+    fwd_aa = fwd_lut[idx]
+    rc_aa = rc_lut[idx]
     # reverse strand: Hr[i] = rc_aa[len - 3 - i], written as the JAX
     # package's flip + per-read left roll by (L - len + 2) mod L
     sh = (L - lengths + 2) % L

@@ -256,12 +256,14 @@ def run_search(engine, batches: Iterable, output: str,
                 metrics.add(m, t0, t_end)
                 log.info(
                     "batch %d: %d reads, %d rows, wall %.1f ms: step %.1f "
-                    "(cpu %.1f), wait %.1f, queue %.1f, fetch %.1f, columns "
-                    "%.1f (e-values %.1f, lengths %d), format %.1f (names "
-                    "%.1f), write %.1f", bi, len(names), rows,
+                    "(cpu %.1f, graph stages %d), wait %.1f, queue %.1f, "
+                    "fetch %.1f, columns %.1f (e-values %.1f, lengths %d), "
+                    "format %.1f (names %.1f), write %.1f", bi, len(names),
+                    rows, 1e3 * m.wall_s, 1e3 * m.step_s,
+                    1e3 * m.step_cpu_s, m.graph_stages,
                     *(1e3 * getattr(m, k) for k in (
-                        "wall_s", "step_s", "step_cpu_s", "wait_s",
-                        "queue_s", "fetch_s", "columns_s", "evalue_s")),
+                        "wait_s", "queue_s", "fetch_s", "columns_s",
+                        "evalue_s")),
                     m.evalue_lengths,
                     *(1e3 * getattr(m, k) for k in (
                         "format_s", "names_s", "write_s")),
@@ -292,7 +294,8 @@ def run_search(engine, batches: Iterable, output: str,
             f.result()
         return time.perf_counter() - t
 
-    # (bi, names, lens, payload, launch time, {step_s, step_cpu_s, wait_s})
+    # (bi, names, lens, payload, launch time, {step_s, step_cpu_s, wait_s,
+    # graph_stages})
     pending = None
     flusher = None if sync else ThreadPoolExecutor(1)
     fut = None
@@ -310,7 +313,9 @@ def run_search(engine, batches: Iterable, output: str,
                     payload = _launch(dna, lens)
                 counts = dict(step_s=time.perf_counter() - t0,
                               step_cpu_s=time.thread_time() - cpu0,
-                              wait_s=0.0)
+                              wait_s=0.0, graph_stages=(
+                                  engine.last_graph_stages
+                                  if mesh is None else 0))
                 if pending is not None:
                     if fut is not None:
                         # bound the queue: one flush in flight

@@ -59,6 +59,8 @@ class BatchMetrics:
     names_s: float = 0.0
     # the distinct query lengths whose e-value length adjustment was solved
     evalue_lengths: int = 0
+    # the step's stages this batch replayed from CUDA graphs (0: eager)
+    graph_stages: int = 0
 
 
 class MetricsLog:

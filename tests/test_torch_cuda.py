@@ -8,6 +8,7 @@ nvcc and skips without one. Run on the card with
 
 import json
 import os
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -893,3 +894,173 @@ def test_refine_never_plain_on_cuda(dev, tmp_path, monkeypatch):
     for r in range(2):
         with open(f"{counts}.r{r}.json") as f:
             assert json.load(f)["launches"]["refine"] > 0, r
+
+
+# ---------------------------------------------------------------------------
+# The step's CUDA graphs (engine.py): the graphed step against the eager one
+
+def _revcomp(seq: bytes) -> bytes:
+    return seq[::-1].translate(bytes.maketrans(b"ACGTN", b"TGCAN"))
+
+
+def _graph_case(case, tmp_path, monkeypatch):
+    """(CUDA engine, batches) of a graphed-step case, every batch's reads
+    distinct and the last batch a tail the engine pads: the config-1
+    golden in batches of 16 (6 and a tail of 4) on a one-shard direct
+    index ("direct"), on a 2-shard CSR index through the per-shard loop
+    ("csr2"), and on BLOSUM50 through B5 ("b5") and B6 ("b6", 72-residue
+    frames); the long-read golden's config ("longread": k = 4 with a
+    poly-A subject, so B1's long rows and the chained vote) on its 5 reads,
+    their reverse complements and their first 3,000 bp, in batches of 2
+    (7 and a tail of 1)."""
+    from ghostm_tpu_torch import engine as E
+    from ghostm_tpu_torch.cli import main as cli
+    from ghostm_tpu_torch.config import Config
+    from ghostm_tpu_torch.index.diskio import load_index
+    from ghostm_tpu_torch.io.fasta import iter_fasta, read_batches
+
+    gold = os.path.join(os.path.dirname(__file__), "golden")
+    prefix = str(tmp_path / "idx")
+    if case == "longread":
+        db = tmp_path / "db.fa"
+        with open(os.path.join(gold, "longread_db.fa")) as f:
+            db.write_text(f.read() + ">polyA\n" + "A" * 40 + "\n")
+        assert cli(["db", "-i", str(db), "-o", prefix, "-k", "4"]) == 0
+        with open(os.path.join(gold, "longread_cfg.json")) as f:
+            cfg = Config(**dict(json.load(f), query_batch=2))
+        seqs = [s for _, s in iter_fasta(os.path.join(
+            gold, "longread_reads.fa"))]
+        reads = tmp_path / "reads.fa"
+        reads.write_text("".join(
+            f">r{i}\n{s.decode()}\n" for i, s in enumerate(
+                seqs + [_revcomp(s) for s in seqs] + [s[:3000]
+                                                      for s in seqs])))
+        reads, max_len = str(reads), 5300
+    else:
+        shards = 2 if case == "csr2" else 1
+        assert cli(["db", "-i", os.path.join(gold, "config1_db.fa"), "-o",
+                    prefix, "--shards", str(shards)]) == 0
+        if case == "csr2":
+            monkeypatch.setenv("GHOSTM_TPU_MERGE_COLOCATED", "0")
+            monkeypatch.setattr(E, "_packed_value_bound", lambda *a: 1 << 40)
+        b50 = dict(matrix="BLOSUM50", gap_open=13, gap_extend=2)
+        kw = {"b5": b50, "b6": dict(b50, query_frame_len=72)}.get(case, {})
+        cfg = Config(query_batch=16, **kw)
+        reads, max_len = os.path.join(gold, "config1_reads.fa"), 120
+    g = E.SearchEngine(cfg, load_index(prefix), device="cuda")
+    if case == "csr2":
+        assert (g.table_mode, g.n_shards) == ("csr", 2)
+    batches = [(dna[:len(names)], lens[:len(names)])
+               for names, dna, lens in read_batches(reads, cfg.query_batch,
+                                                    max_len)]
+    assert len(batches) >= 7 and len(batches[-1][0]) < cfg.query_batch
+    return g, batches
+
+
+def _counted(fn):
+    """fn()'s result and the launches it counted, by wrapper and by
+    (wrapper, shapes)."""
+    l0, s0 = Counter(_build.LAUNCHES), Counter(_build.SHAPES)
+    out = fn()
+    return out, Counter(_build.LAUNCHES) - l0, _build.SHAPES - s0
+
+
+@pytest.mark.parametrize("case,kernel", [
+    ("direct", "sw_fused"), ("csr2", "sort_vote_rank_rows"),
+    ("b5", "sw_scored"), ("b6", "sw_wave"), ("longread", "sort_rows_tiles"),
+])
+def test_graphed_step_equals_eager(dev, tmp_path, monkeypatch, case, kernel):
+    """The step through search_refine_async_dna on a CUDA engine: batch 0
+    eager, batch 1 captures the stages, every later batch replays them.
+    Every batch's payload equals the eager step's (the same engine with
+    the graph rule off), fetched only after every later batch has
+    replayed (the clone), and every batch counts the eager step's
+    launches, by wrapper and by shape (the case's kernel in each)."""
+    from ghostm_tpu_torch import engine as E
+
+    g, batches = _graph_case(case, tmp_path, monkeypatch)
+    n = len(E.GRAPH_STAGES)
+    graphed, stages = [], []
+    for dna, lens in batches:
+        graphed.append(_counted(
+            lambda: g.search_refine_async_dna(dna, lens)))
+        stages.append(g.last_graph_stages)
+    assert stages == [0] + [n] * (len(batches) - 1)
+    assert (g.graph_captures, g.graph_eager) == (n, n)
+    assert g.graph_replays == n * (len(batches) - 1)
+    with monkeypatch.context() as m:
+        m.setattr(E, "graphs_device", lambda d: False)
+        eager = [_counted(lambda: g.search_refine_async_dna(dna, lens))
+                 for dna, lens in batches]
+    assert g.graph_replays == n * (len(batches) - 1)
+    hits = 0
+    for i, ((p, gl, gs), (q, el, es)) in enumerate(zip(graphed, eager)):
+        want = g.fetch(q)
+        np.testing.assert_array_equal(g.fetch(p), want, err_msg=str(i))
+        assert gl == el and gs == es, i
+        assert gl[kernel] > 0, i
+        hits += int((want[1] >> 15).astype(bool).sum())
+    assert hits > 0
+
+
+def test_graphed_goldens_cli(dev, tmp_path):
+    """The three goldens through `aln` on CUDA in batches small enough
+    that all but the first two replay the step's graphs: byte for byte."""
+    from ghostm_tpu_torch.cli import main as cli
+
+    gold = os.path.join(os.path.dirname(__file__), "golden")
+    idx, lr = str(tmp_path / "idx"), str(tmp_path / "lr")
+    assert cli(["db", "-i", os.path.join(gold, "config1_db.fa"), "-o",
+                idx]) == 0
+    cfg = os.path.join(gold, "longread_cfg.json")
+    assert cli(["db", "-i", os.path.join(gold, "longread_db.fa"), "-o", lr,
+                "--config", cfg]) == 0
+    reads = os.path.join(gold, "config1_reads.fa")
+    for tag, args, want in (
+            ("b62", ["-d", idx, "-i", reads, "--batch", "16"],
+             "config1_hits.tsv"),
+            ("b50", ["-d", idx, "-i", reads, "--batch", "16", "--matrix",
+                     "BLOSUM50", "--gap-open", "13", "--gap-extend", "2"],
+             "config1_b50_hits.tsv"),
+            ("lr", ["-d", lr, "-i", os.path.join(gold, "longread_reads.fa"),
+                    "--config", cfg, "--max-read-len", "5300", "--batch",
+                    "1"], "longread_hits.tsv")):
+        out = str(tmp_path / f"{tag}.tsv")
+        assert cli(["aln", *args, "-o", out, "--device", "cuda"]) == 0, tag
+        with open(out) as f, open(os.path.join(gold, want)) as h:
+            assert f.read() == h.read(), tag
+
+
+@pytest.mark.parametrize("what", ["sort_rows", "merge_vote"])
+def test_kernels_capture_above_48k_smem(dev, what):
+    """B1 and B2's merge entry at 16,384-key rows (64 KB of shared memory:
+    the launch opts in past the 48 KB default, csrc/bitonic.cuh) captured
+    into a CUDA graph and replayed on new keys: the plain version's rows."""
+    gen = torch.Generator().manual_seed(7)
+    if what == "sort_rows":
+        x = _keys(gen, 16, 16384, 128, 1 << 20, dev)
+        fn = lambda: S.sort_rows(x, presorted_run=128)   # noqa: E731
+        plain = lambda: S.sort_rows_plain(x, presorted_run=128)  # noqa
+    else:
+        a = torch.sort(_keys(gen, 16, 8192, 1, 1 << 12, dev), 1).values
+        b = torch.sort(_keys(gen, 16, 2048, 1, 1 << 12, dev), 1).values
+        fn = lambda: S.merge_vote_rank_rows(a, b, 8, 2)   # noqa: E731
+        plain = lambda: S.merge_vote_rank_rows_plain(a, b, 8, 2)  # noqa
+    fn()                                    # warm-up, outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(3):
+        srcs = [x] if what == "sort_rows" else [a, b]
+        for t in srcs:
+            fresh = _keys(gen, t.shape[0], t.shape[1], 128 if what ==
+                          "sort_rows" else 1, 1 << 12, dev)
+            t.copy_(fresh if what == "sort_rows"
+                    else torch.sort(fresh, 1).values)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = plain()
+        for o, w in zip(out if isinstance(out, tuple) else (out,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(o, w)

@@ -51,10 +51,14 @@ import sys
 import numpy as np
 import torch
 torch.set_num_threads(1)
+from ghostm_tpu_torch import engine as E
 from ghostm_tpu_torch.config import Config
 from ghostm_tpu_torch.engine import SearchEngine
 from ghostm_tpu_torch.index.diskio import load_index
 from ghostm_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+# the step's graph rule as on a CUDA device: a grid rank still runs eager
+E.graphs_device = lambda dev: True
 
 coord, rank, data, db, d = (sys.argv[1], int(sys.argv[2]),
                             int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
@@ -88,6 +92,8 @@ for tag, kw in cases:
         save(f"{tag}.local", h, s)
     if (data, db) == (2, 2):
         save(f"{tag}.tail5", *eng.search_batch_stats(qc[:5]))
+    out[f"{tag}.graphs"] = np.array([eng.graph_captures, eng.graph_replays,
+                                     eng.last_graph_stages, eng.graph_eager])
 out["collectives"] = np.array(sorted(mesh.collective_s))
 np.savez(f"{d}/out-{data}x{db}-r{rank}.npz", **out)
 """
@@ -205,6 +211,17 @@ def test_grid_collectives_timed(grids):
     for shape, outs in grids.items():
         for out in outs:
             assert out["collectives"].tolist() == want[shape], shape
+
+
+def test_grid_rank_captures_nothing(grids):
+    """A grid rank's engine runs its step eager where a CUDA engine of one
+    device replays graphs (the graph rule forced on in the ranks): no
+    capture, no replay, refine eager in each of its steps."""
+    for shape, outs in grids.items():
+        for out in outs:
+            cap, rep, last, eager = out["b62.graphs"].tolist()
+            assert (cap, rep, last) == (0, 0, 0), shape
+            assert eager > 0, shape
 
 
 def test_mesh_matches_different_shardings(grids):
