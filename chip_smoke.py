@@ -32,7 +32,10 @@ Phases, each printing one JSON line ({"phase": ...}):
            shapes: B1 at (128, 13800) with runs of 8 (the one-block L =
            16384 instance), B3 at 120 x Lq 1728, band 64, B4 at 9 x (5, 24);
            B4 on 3 keys at 3 x (49152, 16), top 8 (the multi-shard select
-           at 2 shards: the 3-key warp instance); R1 (refine: the moves
+           at 2 shards: the 3-key warp instance); R2 (the chained vote,
+           gamma 2, 4 candidates) on sorted rows at the long-read golden's
+           (128, 13800), the 5 kbp leg's (768, 27600) and the
+           longread_k5.hifi10k cell's (128, 441856); R1 (refine: the moves
            DP and the traceback walk in one launch) at the main path's
            shapes, 81,920 hits at Lq 40 (BLOSUM62) and Lq 88 (BLOSUM50),
            band 32, and 1,280 at Lq 1728, band 64, and at 10 kbp reads'
@@ -70,7 +73,7 @@ Phases, each printing one JSON line ({"phase": ...}):
            3-key select rows on each rank of the db grid; byte-compared;
   golden_longread  `db` + `aln --config tests/golden/longread_cfg.json
            --max-read-len 5300` (5 kbp reads, collinear chaining: B1, the
-           chained vote, B3, B4), byte-compared with
+           chained vote R2, B3, B4), byte-compared with
            tests/golden/longread_hits.tsv;
   scale    the config-2-true deployment: 570,000 synthetic proteins of
            250-450 aa (numpy default_rng(7)), k = 5, hits_per_seed 128,
@@ -106,7 +109,7 @@ Phases, each printing one JSON line ({"phase": ...}):
            from the long proteins, 128 a batch (768 frames of 1728
            residues), the golden's config 5 (band 64, chain_gamma 2, 4
            candidates a frame), 1 warm + 3 timed batches; B1's long-row
-           entry must launch; a 16-read batch cross-checked against the
+           entry and R2 must launch; a 16-read batch cross-checked against the
            same engine on device="cpu";
   swissprot_tail  a database with Swiss-Prot's length tail: 480,000
            proteins of 250-450 aa (default_rng(7); the most one shard can
@@ -369,7 +372,8 @@ def per_kernel(launches: dict) -> dict:
             + launches["merge_vote_rank_rows"],
             "B3": launches["sw_fused"], "B4": launches["lex_rank_rows"],
             "B5": launches["sw_scored"], "B6": launches["sw_wave"],
-            "R1": launches["refine"]}
+            "R1": launches["refine"],
+            "R2": launches["chain_vote_rank_rows"]}
 
 
 def refine_once_a_batch(tag: str, launches: dict, batches: int) -> None:
@@ -731,6 +735,31 @@ def kernel_phase(dev):
         "num_keys + 1 compares a column (the top-8 selection)",
         launch=("swissprot_tail_2shard", "lex_rank_rows", (3, Q, M)),
         device_ms=True, shape=[3, Q, M])
+    # R2, the chained vote (its own generator): B1's sorted rows at the
+    # long-read golden's (128, 13800) (8 subjects x 113 bins, half the
+    # keys invalid), the 5 kbp leg's (768, 27600) (571,000 subjects x 113
+    # bins, full seed buckets) and the longread_k5.hifi10k cell's
+    # (128, 441856) (3,452 k-mers x 128 seeds of a 3,456-residue frame;
+    # not a leg here: the cell runs in portbench), gamma 2, 4 candidates a
+    # frame, against the plain vote_top(..., chain_gamma=2)
+    gen_chain = torch.Generator(device=dev)
+    gen_chain.manual_seed(5)
+    for leg, q, m, nsub, nbins, big in (
+            ("golden_longread", 128, 13_800, 8, 113, 0.5),
+            ("longread_5kbp", 768, 1725 * 16, 571_000, 113, 0.02),
+            (None, 128, 3452 * 128, 570_000, 124, 0.5)):
+        x = torch.sort(presorted_keys(gen_chain, q, m, 8, nsub * nbins, big,
+                                      dev), dim=1).values
+        run(f"R2 chain_vote_rank_rows ({q}, {m})",
+            "ghostm_tpu_torch/csrc/chain_vote.cu",
+            "ghostm_tpu/kernels/candidates.py:66",
+            lambda: S.chain_vote_rank_rows(x, 4, 1, nbins, 2),
+            lambda: S.vote_top(x, 4, 1, nbins=nbins, chain_gamma=2),
+            None, x.numel() * 4 + 2 * q * 4 * 4, 16 * q * m,
+            "16 int32 ops a key (run detection 4, the chain recurrence 8, "
+            "the run's score 4)",
+            launch=(leg, "chain_vote_rank_rows", (q, m)) if leg else None,
+            device_ms=True, shape=[q, m])
     del x, k1, keys, a, b, q, w, lo, hi, tab, ops
     torch.cuda.empty_cache()
     refine_rows(dev, run)
@@ -1106,7 +1135,8 @@ def golden_phases():
         longread = golden_phase(
             prefix, "golden_longread", ["--config", cfgf, "--max-read-len",
                                         "5300"], "longread_hits.tsv",
-            ("sort_rows", "sw_fused", "lex_rank_rows", "refine"),
+            ("sort_rows", "chain_vote_rank_rows", "sw_fused",
+             "lex_rank_rows", "refine"),
             forbid=("sort_vote_rank_rows", "merge_vote_rank_rows"),
             reads="longread_reads.fa")
     return dict(golden=golden, golden_b50=b50, golden_longread=longread,
@@ -1693,8 +1723,8 @@ def longread_phase(n_short: int):
          shape_launches=shape_counts(shapes), hits=hits,
          top_hit_is_source=int((top == src).sum()), crosscheck_reads=16,
          crosscheck_equal=same, crosscheck_hits=xhits)
-    for k in ("sort_rows_tiles", "sort_rows_merge", "sw_fused",
-              "lex_rank_rows", "refine"):
+    for k in ("sort_rows_tiles", "sort_rows_merge", "chain_vote_rank_rows",
+              "sw_fused", "lex_rank_rows", "refine"):
         if launches[k] == 0:
             raise SystemExit(f"longread_5kbp: kernel {k} was never launched")
     refine_once_a_batch("longread_5kbp", launches, TIMED_LONG)

@@ -6,7 +6,8 @@ One batch of raw DNA reads runs, on the engine's device:
   2. PROPOSE, per shard: k-mer keys -> the seed table's hits per k-mer ->
      per query frame a sort, run-length vote and top-ncand (kernels B1,
      B2); in long-read mode (smooth_bins, chain_gamma > 0) B1, then the
-     vote with neighbour-bin smoothing or collinear chain scores;
+     vote with collinear chain scores (kernel R2, the chained vote) or
+     neighbour-bin smoothing (the plain vote);
   3. SELECT: the global top-ncand over the shards' proposals (kernel B4 on
      3 keys; the identity with one shard);
   4. ALIGN, per shard: window fetch + banded SW on the candidates the
@@ -39,6 +40,12 @@ graph's static inputs through pinned staging (the step does not wait for
 the device), and the output is cloned out of the static one, since the
 pipeline fetches batch i while batch i + 1 replays. A grid rank, the CPU
 engine, the --check pass and the codes entries run eager.
+The fetch: search_refine_async_dna on a CUDA engine also starts the
+output's copy to pinned host memory, on a copy stream that waits for the
+step, from the thread that launched it; `fetch` waits for that copy. A
+copy the flush thread enqueued on the one stream would wait behind every
+batch launched before it: one or two, as the threads happened to run, so
+a batch's latency swung by a whole step.
 Counters: graph_captures, graph_replays (stages), graph_eager (stages a
 CUDA engine ran eager) and last_graph_stages (stages the last batch
 replayed).
@@ -846,6 +853,7 @@ class SearchEngine:
         self.graph_replays = 0
         self.graph_eager = 0
         self.last_graph_stages = 0
+        self._copy_stream = None   # the payloads' copies to the host
 
     # ------------------------------------------------------------------
     # CUDA graphs of the step's stages (module docstring)
@@ -1122,14 +1130,34 @@ class SearchEngine:
                 self._stage_in(gs, dna, lens)
         if gs is not None:
             out = self._graphed_step(gs)
-            return (out[:, :R] if R < Rb else out).clone()
+            return self._copy_out((out[:, :R] if R < Rb else out).clone())
         out = self.step_dna(dna_d, lens_d)
         self.last_graph_stages = 0
         if self._graphs_on():
             # the shape's warm-up batch ran: the next one captures
             self._graphs[key] = StepGraphs(torch.empty_like(dna_d),
                                            torch.empty_like(lens_d))
-        return out[:, :R] if R < Rb else out
+        return self._copy_out(out[:, :R] if R < Rb else out)
+
+    def _copy_out(self, payload: torch.Tensor) -> torch.Tensor:
+        """Start payload's copy to pinned host memory once the step's
+        device work is done, on the engine's copy stream; `fetch` waits
+        for it (module docstring). A CPU payload is returned as it is."""
+        if payload.device.type != "cuda":
+            return payload
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        stream = self._copy_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        host = torch.empty(payload.shape, dtype=payload.dtype,
+                           pin_memory=True)
+        with torch.cuda.stream(stream):
+            host.copy_(payload, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+        payload.record_stream(stream)
+        payload.host_copy = (host, done)
+        return payload
 
     # ------------------------------------------------------------------
     # The codes entry: (R, 6, Lq) int8 translated frames from the host
@@ -1225,8 +1253,14 @@ class SearchEngine:
 
     @staticmethod
     def fetch(payload: torch.Tensor) -> np.ndarray:
-        """Device payload -> host numpy (waits for the device)."""
-        return payload.cpu().numpy()
+        """Device payload -> host numpy (waits for the device): the copy
+        search_refine_async_dna started where there is one."""
+        started = getattr(payload, "host_copy", None)
+        if started is None:
+            return payload.cpu().numpy()
+        host, done = started
+        done.synchronize()
+        return host.numpy()
 
     # ------------------------------------------------------------------
     def _pack_transport(self, out18: torch.Tensor) -> torch.Tensor:

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("sort_rows", "sort_vote", "merge_vote", "sw_fused", "lex_rank",
-           "sw_scored", "refine")
+           "sw_scored", "refine", "chain_vote")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -45,7 +45,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 LAUNCHES: Dict[str, int] = dict.fromkeys((
     "sort_rows", "sort_rows_tiles", "sort_rows_merge", "sort_vote_rank_rows",
     "merge_vote_rank_rows", "sw_fused", "lex_rank_rows", "sw_scored",
-    "sw_wave", "refine",
+    "sw_wave", "refine", "chain_vote_rank_rows",
 ), 0)
 SHAPES: Counter = Counter()
 

@@ -10,8 +10,10 @@ kernels: without smoothing or chaining, a split sort (B1 twice, then B2's
 merge entry) when the presorted run count is not a power of two and the
 leading power-of-two part is >= 1024 keys, else B2's monolithic entry;
 with either (long-read mode), or where B2's packed top-k cannot cover the
-row, B1 then the row-batched vote (sort.vote_top: the chain scan, the
-neighbour-bin smoothing and the two-reduction top-k).
+row, B1 then the vote: chaining alone by kernel R2
+(sort.chain_vote_rank_rows), anything else by the row-batched plain vote
+(sort.vote_top: the chain scan, the neighbour-bin smoothing and the
+two-reduction top-k).
 
 select_global merges the shards' proposals into the global top-ncand by
 the same key (votes desc, gsid asc, bin asc): kernel B4 on 3 keys, the
@@ -25,6 +27,7 @@ from typing import Tuple
 import torch
 
 from ghostm_tpu_torch.kernels import sort
+from ghostm_tpu_torch.utils.metrics import span
 
 BIG = 1 << 30
 
@@ -86,11 +89,18 @@ def vote_and_rank(
             )
     else:
         # smoothing, chaining, or rows too long for the packed in-kernel
-        # top-k: B1 sort, then the row-batched vote
-        top_keys, votes = sort.vote_top(
-            sort.sort_rows(keys, presorted_run=presorted_run), ncand, mv,
-            nbins=nbins, smooth=smooth, chain_gamma=chain_gamma,
-        )
+        # top-k: B1 sort, then the vote: the chained one by kernel R2, any
+        # other by the row-batched plain vote
+        rows = sort.sort_rows(keys, presorted_run=presorted_run)
+        with span("step.propose.vote"):
+            if chain_gamma and not smooth:
+                top_keys, votes = sort.chain_vote_rank_rows(
+                    rows, ncand, mv, nbins, chain_gamma)
+            else:
+                top_keys, votes = sort.vote_top(
+                    rows, ncand, mv, nbins=nbins, smooth=smooth,
+                    chain_gamma=chain_gamma,
+                )
     top_row = (top_keys // nbins).clamp(0, S - 1).to(torch.int64)
     pos = votes > 0
     big = torch.full_like(votes, BIG)

@@ -3,9 +3,9 @@
 Each wrapper takes int32 tensors. A CPU tensor goes through the plain
 PyTorch version beside it; a CUDA tensor launches the hand-written kernel
 (csrc/sort_rows.cu, csrc/sort_vote.cu, csrc/merge_vote.cu,
-csrc/lex_rank.cu) or raises. Both give the same integers: an integer
-sort's output is unique, and the kernels' tie-breaks are the plain
-versions' tie-breaks.
+csrc/lex_rank.cu, csrc/chain_vote.cu) or raises. Both give the same
+integers: an integer sort's output is unique, and the kernels'
+tie-breaks are the plain versions' tie-breaks.
 
   B1 sort_rows             ascending sort of each row (torch.sort); rows
                            past TILE keys as tiles, then merge passes
@@ -13,6 +13,8 @@ versions' tie-breaks.
      merge_vote_rank_rows  the same over the union of two sorted halves
   B4 lex_rank_rows         stable lexicographic multi-operand row sort,
                            first topk columns
+  R2 chain_vote_rank_rows  run-length vote + collinear chain scores +
+                           top-ncand of each sorted row (long-read mode)
 
 Caller contract (the JAX package's kernels/sort.py): invalid vote keys are
 >= BIG = 2^30 and sort to the row's tail; B1 and B2 pad rows to a power of
@@ -205,6 +207,57 @@ def vote_top(k: torch.Tensor, ncand: int, min_votes: int,
                                     torch.full_like(v, BIG)))
         pk = torch.where(idx == i[:, None], zero, pk)
     return torch.stack(top_keys, 1), torch.stack(top_votes, 1)
+
+
+# ---------------------------------------------------------------------------
+# R2: the chained vote (vote_top with chain_gamma > 0, no smoothing)
+# ---------------------------------------------------------------------------
+
+CHAIN_NCAND = 32       # R2's widest top-ncand (csrc/chain_vote.cu)
+CHAIN_PART = 1 << 14   # R2's keys of a row a block (csrc/chain_vote.cu)
+
+
+def chain_vote_rank_rows(k: torch.Tensor, ncand: int, min_votes: int,
+                         nbins: int, chain_gamma: int):
+    """vote_top(k, ncand, min_votes, nbins, smooth=False, chain_gamma) of a
+    (Q, M) int32 array of rows sorted ascending (invalid keys >= BIG at
+    the tail): (keys, votes), each (Q, ncand) int32, by (votes desc, key
+    asc), key BIG where votes == 0. A CUDA tensor launches kernel R2
+    (csrc/chain_vote.cu: a block a CHAIN_PART-key stretch of a row, cut
+    where the subject row changes, read once; the row's last block merges
+    the blocks' top lists), equal to the plain version wherever chain_gamma
+    * key + M < 2^31 for every valid key (candidates.vote_and_rank's
+    check), or raises. Replaces the JAX package's chain in
+    kernels/candidates.py::_per_query (XLA)."""
+    if k.device.type == "cpu":
+        return vote_top(k, ncand, min_votes, nbins=nbins,
+                        chain_gamma=chain_gamma)
+    Q, M = k.shape
+    if not 1 <= ncand <= CHAIN_NCAND:
+        raise ValueError(f"ncand={ncand} not in [1, {CHAIN_NCAND}] "
+                         "(kernel R2's top lists)")
+    if chain_gamma < 1 or nbins < 1:
+        raise ValueError(f"chain_gamma={chain_gamma} and nbins={nbins} "
+                         "must be >= 1")
+    _check_cuda(k)
+    keys = torch.empty((Q, ncand), dtype=torch.int32, device=k.device)
+    votes = torch.empty_like(keys)
+    if Q == 0:
+        return keys, votes
+    parts = max(-(-M // CHAIN_PART), 1)
+    lists = torch.empty((Q, parts, ncand), dtype=torch.int64,
+                        device=k.device)
+    done = torch.zeros((Q, 3), dtype=torch.int32, device=k.device)
+    lib = _build.load("chain_vote")
+    fn = lib.ghostm_chain_vote_rows
+    fn.argtypes = [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+    fn.restype = _I
+    _build.check(fn(k.data_ptr(), Q, M, nbins, chain_gamma, ncand, min_votes,
+                    int(_aligned(k)), CHAIN_PART, lists.data_ptr(),
+                    done.data_ptr(), keys.data_ptr(), votes.data_ptr(),
+                    _build.stream_ptr(k.device)), "chain_vote_rank_rows")
+    _build.count("chain_vote_rank_rows", k.shape)
+    return keys, votes
 
 
 # ---------------------------------------------------------------------------

@@ -238,6 +238,107 @@ def test_merge_vote_kernel(dev, q, la, mb, minv, hi, kind):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _chain_rows(gen, q, m, kind, nbins, gamma):
+    """Sorted (q, m) vote-key rows of `kind`: "rand" (keys over up to
+    570,000 subjects' bins, 30% invalid), "dense" (4 subjects: long
+    chains, tied scores), "one" (one subject a row: one segment), "singles"
+    (one-key runs), "big" (all invalid), "edges" (a new subject row every
+    16 keys, at every thread's slice edge and so every tile edge, runs of
+    1-3 keys inside), "long_runs" (runs of 37 keys and of 5,000, across
+    slices and tiles, one subject), "span" (gamma * key up to 2^30: no
+    int32 wraps), "wrap" (gamma * key past 2^30, up to 2^31 - m: the plain
+    version's subtraction at a segment's first run wraps, and so, at m <
+    2^15, does its packed top-k; one-key runs, each its own segment at
+    nbins 1), "unaligned" ("rand" 4 bytes past 16-byte alignment)."""
+    subjects = min(570_000, (1 << 30) // gamma // nbins)
+    i = torch.arange(m, dtype=torch.int32).expand(q, m)
+    if kind in ("rand", "unaligned"):
+        k = torch.randint(0, subjects * nbins, (q, m), generator=gen,
+                          dtype=torch.int32)
+        k[torch.rand((q, m), generator=gen) < 0.3] = BIG
+    elif kind == "dense":
+        k = torch.randint(0, 4 * nbins, (q, m), generator=gen,
+                          dtype=torch.int32)
+    elif kind == "one":
+        row = torch.randint(0, subjects, (q, 1), generator=gen,
+                            dtype=torch.int32)
+        k = row * nbins + torch.randint(0, nbins, (q, m), generator=gen,
+                                        dtype=torch.int32)
+    elif kind == "singles":
+        steps = torch.randint(1, 4, (q, m), generator=gen,
+                              dtype=torch.int32)
+        k = torch.cumsum(steps, 1, dtype=torch.int32)
+    elif kind == "big":
+        k = torch.full((q, m), BIG, dtype=torch.int32)
+    elif kind == "edges":
+        k = (i // 16) * nbins + (i % 16) // 3
+    elif kind == "long_runs":
+        k = torch.where(i < m // 2, i // 37, m // 74 + 1 + i // 5000)
+    elif kind == "span":
+        top = (1 << 30) // gamma
+        k = torch.randint(top - 20_000, top + 1, (q, m), generator=gen,
+                          dtype=torch.int32)
+    elif kind == "wrap":
+        k = torch.randint((1 << 30) // gamma + 1, ((1 << 31) - m) // gamma,
+                          (q, m), generator=gen, dtype=torch.int32)
+    return torch.sort(k.to(torch.int32), dim=1).values.contiguous()
+
+
+@pytest.mark.parametrize("q,m,kind,gamma,ncand,minv,nbins", [
+    (128, 3452 * 128, "rand", 2, 4, 1, 124),   # the long-read cell's rows
+    (384, 55_248, "rand", 2, 4, 1, 124),   # 10 kbp reads at k = 4
+    (768, 27_600, "rand", 2, 4, 1, 124),   # 5 kbp reads
+    (5, 13_800, "rand", 2, 4, 1, 113),
+    (7, 4097, "rand", 1, 8, 1, 64),        # odd M: one key past a tile
+    (9, 1001, "rand", 4, 1, 1, 32),        # odd M
+    (5, 33, "rand", 2, 8, 1, 8), (3, 1, "rand", 2, 4, 1, 8),
+    (64, 16_384, "dense", 1, 8, 3, 16), (16, 4096, "dense", 2, 32, 1, 16),
+    (16, 55_248, "one", 2, 4, 1, 4096), (16, 27_600, "one", 4, 8, 3, 124),
+    (16, 27_600, "singles", 2, 8, 1, 124),
+    (16, 27_601, "singles", 4, 4, 1, 124),
+    (8, 12_288, "big", 2, 4, 1, 124),
+    (8, 8192, "edges", 2, 8, 1, 64), (8, 8195, "edges", 1, 4, 3, 64),
+    (8, 55_248, "long_runs", 1, 4, 1, 1 << 16),
+    (8, 55_248, "long_runs", 4, 8, 3, 1 << 16),
+    (8, 10_000, "span", 4, 8, 1, 124), (8, 10_000, "span", 1, 4, 3, 124),
+    (8, 10_000, "span", 2, 1, 1, 124),
+    (8, 10_000, "wrap", 2, 8, 1, 1), (8, 27_600, "wrap", 4, 4, 1, 124),
+    (4, 40_000, "wrap", 2, 8, 3, 1),      # m >= 2^15: the plain two-pass
+    (4096, 2, "wrap", 2, 4, 1, 1),        # rows of negative readings only
+    (2048, 3, "wrap", 4, 1, 1, 1),
+    (40, 27_600, "unaligned", 2, 4, 1, 124),
+    # rows of several blocks (S.CHAIN_PART keys each): one subject over
+    # four blocks, long subjects, a subject row ending at each block edge
+    (4, 3 * S.CHAIN_PART + 5, "one", 2, 8, 1, 1 << 20),
+    (8, 70_000, "dense", 2, 4, 3, 4096),
+    (8, 2 * S.CHAIN_PART + 16, "edges", 1, 4, 1, 64),
+    (4, 2 * S.CHAIN_PART + 7, "unaligned", 4, 32, 1, 124),
+])
+def test_chain_vote_kernel(dev, q, m, kind, gamma, ncand, minv, nbins):
+    """Kernel R2 against the plain vote_top(..., chain_gamma): one launch,
+    equal keys and votes, on rows of one block and of several."""
+    gen = torch.Generator().manual_seed(q * m + gamma)
+    k = _chain_rows(gen, q, m, kind, nbins, gamma).to(dev)
+    if kind == "unaligned":
+        k = _unaligned(k)
+    got = _launched("chain_vote_rank_rows", lambda: S.chain_vote_rank_rows(
+        k, ncand, minv, nbins, gamma))
+    want = S.vote_top(k, ncand, minv, nbins=nbins, chain_gamma=gamma)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if kind != "big":
+        assert int(want[1].max()) > 0
+    if kind == "wrap" and m < 8:
+        assert int(want[1].min()) < 0
+
+
+def test_chain_vote_kernel_ncand_past_its_lists_raises(dev):
+    """R2 keeps top lists of up to S.CHAIN_NCAND: a wider ncand on a CUDA
+    tensor raises rather than running the plain vote on the card."""
+    k = torch.zeros((2, 64), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="ncand"):
+        S.chain_vote_rank_rows(k, S.CHAIN_NCAND + 1, 1, 16, 2)
+
+
 def _lex_ops(gen, kind, q, m, nk, nops):
     """Keys 0..2 ("rand", the earlier cases; "ties": ties in most
     columns, 0..1), or "sentinel": INT32_MIN, INT32_MAX = PAD and values
@@ -540,6 +641,8 @@ def test_engine_cuda_equals_cpu_long_read(dev, tmp_path):
     assert _build.LAUNCHES["sort_rows_tiles"] == before["sort_rows_tiles"] + 1
     assert _build.LAUNCHES["sort_vote_rank_rows"] == before[
         "sort_vote_rank_rows"]
+    assert _build.LAUNCHES["chain_vote_rank_rows"] > before[
+        "chain_vote_rank_rows"]
     want = c.fetch(c.search_refine_async_dna(dna, lens))
     np.testing.assert_array_equal(got, want)
     assert (got[1] >> 15).max() > 0
@@ -1026,9 +1129,13 @@ def test_graphed_goldens_cli(dev, tmp_path):
                     "--config", cfg, "--max-read-len", "5300", "--batch",
                     "1"], "longread_hits.tsv")):
         out = str(tmp_path / f"{tag}.tsv")
+        chained = _build.LAUNCHES["chain_vote_rank_rows"]
         assert cli(["aln", *args, "-o", out, "--device", "cuda"]) == 0, tag
         with open(out) as f, open(os.path.join(gold, want)) as h:
             assert f.read() == h.read(), tag
+        # the long-read golden's chained vote runs on kernel R2
+        assert (_build.LAUNCHES["chain_vote_rank_rows"] > chained) == (
+            tag == "lr"), tag
 
 
 @pytest.mark.parametrize("what", ["sort_rows", "merge_vote"])

@@ -205,6 +205,30 @@ def test_cpu_engine_captures_nothing(index, tmp_path):
         assert f.read() == g.read()
 
 
+def test_fetch_waits_for_the_started_copy(index):
+    """fetch takes the host copy search_refine_async_dna started (after
+    waiting on its event) where the payload carries one, and copies the
+    payload itself where not; a CPU engine starts none."""
+    class Done:
+        waited = 0
+
+        def synchronize(self):
+            Done.waited += 1
+
+    payload = torch.arange(6, dtype=torch.int32).reshape(2, 3)
+    np.testing.assert_array_equal(E.SearchEngine.fetch(payload),
+                                  payload.numpy())
+    host = torch.full((2, 3), 7, dtype=torch.int32)
+    payload.host_copy = (host, Done())
+    got = E.SearchEngine.fetch(payload)
+    assert Done.waited == 1
+    np.testing.assert_array_equal(got, host.numpy())
+    eng = E.SearchEngine(Config(query_batch=BATCH), load_index(index),
+                         device="cpu")
+    _, dna, lens = next(read_batches(READS, BATCH, 120))
+    assert not hasattr(eng.search_refine_async_dna(dna, lens), "host_copy")
+
+
 def test_check_path_captures_nothing(index, tmp_path, graphed, monkeypatch):
     """--check (cfg.check): each batch's checked pass runs its stages
     eager and neither captures nor replays, while the step beside it

@@ -175,6 +175,41 @@ def test_vote_and_rank_long_read_matches_jax(rng, smooth, gamma, nbins):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("gamma,ncand,nbins,S", [
+    (1, 4, 64, 30), (2, 8, 113, 30), (4, 1, 32, 30),
+    (2, 4, 1 << 20, 600),   # gamma * S * nbins past 2^30: int32 wraps
+    (2, 40, 64, 30),        # ncand past R2's top lists
+])
+def test_vote_and_rank_chained_cpu_takes_the_plain_vote(
+        rng, monkeypatch, gamma, ncand, nbins, S):
+    """Every unsmoothed chained vote goes through sort.chain_vote_rank_rows
+    (kernel R2's wrapper), whose CPU version is the plain vote_top: no
+    launch counted, and the proposals equal the JAX package's."""
+    from ghostm_tpu_torch.kernels import _build
+
+    calls = []
+    wrapper = tsort.chain_vote_rank_rows
+    monkeypatch.setattr(tsort, "chain_vote_rank_rows",
+                        lambda *a: calls.append(a) or wrapper(*a))
+    q, run = 6, 16
+    m = 64 * run
+    keys = rng.integers(0, min(S * nbins, BIG) // 3, (q, m)).astype(np.int32)
+    keys[rng.random((q, m)) < 0.3] = BIG
+    keys = _presorted(keys, run)
+    sid = np.arange(S, dtype=np.int32)
+    before = dict(_build.LAUNCHES)
+    got = tcand.vote_and_rank(torch.from_numpy(keys), torch.from_numpy(sid),
+                              ncand, 1, nbins=nbins, presorted_run=run,
+                              chain_gamma=gamma)
+    assert _build.LAUNCHES == before
+    assert len(calls) == 1
+    want = jcand.vote_and_rank(jnp.asarray(keys), jnp.asarray(sid), ncand,
+                               1, False, nbins, chain_gamma=gamma)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert int(got[2].max()) > 0
+
+
 def test_vote_and_rank_chain_overflow_raises():
     """gamma * S * nbins + M must stay below 2^31, as in the reference."""
     keys = torch.full((1, 128), BIG, dtype=torch.int32)
