@@ -25,10 +25,15 @@ Phases, each printing one JSON line ({"phase": ...}):
            B5 also on the int32 tile route (band 24); rows on no path:
            B2-mono at (6144, 4096) with runs of 128 (36-residue frames),
            B4 at 9 x (1024, 1026) (rows past the old 48 KB cap); B1's
-           long-row entry (tiles, then merge passes) at the 5 kbp and
+           long-row entry (tiles, then one k-way merge) at the 5 kbp and
            10 kbp propose rows, (768, 27600) and (384, 55248) with runs of
-           16, and B3 at the long-read align shapes (3072 x Lq 1728, band
-           64; 1536 x Lq 3456, band 128); the long-read golden's own
+           16, and at the longread_k5.hifi10k cell's (128, 441856) with
+           runs of 128, each with its k-way merge timed alone against one
+           trip of the rows (kway_device_ms, kway_bound_ms), and past 32
+           tiles, where pairwise merge passes come first: (8, 540672)
+           with runs of 16 and (2, 1064963) unsorted; B3 at the long-read
+           align shapes (3072 x Lq 1728, band 64; 1536 x Lq 3456, band
+           128); the long-read golden's own
            shapes: B1 at (128, 13800) with runs of 8 (the one-block L =
            16384 instance), B3 at 120 x Lq 1728, band 64, B4 at 9 x (5, 24);
            B4 on 3 keys at 3 x (49152, 16), top 8 (the multi-shard select
@@ -366,6 +371,7 @@ def ptxas_lines(log: str) -> list:
 def per_kernel(launches: dict) -> dict:
     """Wrapper launch counts -> counts per CUDA kernel (B2's two entries
     launch one kernel)."""
+    # (B1's k-way merges, "sort_rows_kway", are among its merge launches)
     return {"B1": launches["sort_rows"] + launches["sort_rows_tiles"]
             + launches["sort_rows_merge"],
             "B2": launches["sort_vote_rank_rows"]
@@ -479,6 +485,39 @@ def time_select_rank(root: str) -> dict:
 def sort_ops(q, L, first, extra_per_elem=0):
     passes = sum(range(first, L.bit_length()))
     return q * (passes * (L // 2) * 2 + extra_per_elem * L)
+
+
+def b1_long_row(run, S, leg, x, rn, dev):
+    """B1's long-row route on x (runs of rn): the wrapper (tiles, then
+    sort.long_plan's merges) held to the plain version and timed, and its
+    k-way merge alone (kway_device_ms) from the sorted tiles, against one
+    trip of the rows through device memory (8 bytes a key)."""
+    q, m = x.shape
+    tiles = -(-m // S.TILE)
+    passes, kway = S.long_plan(m)
+    extra = {}
+    if kway and not passes:
+        src = torch.empty_like(x)
+        dst = torch.empty_like(x)
+        vec = int(S._aligned(x, src, dst))
+        smp = S._sort_tiles(x, src, rn.bit_length(), vec, True)
+        extra = dict(kway_device_ms=time_ms(
+            lambda: S._merge_kway(src, dst, S.TILE, smp, vec), 20,
+            torch.empty(64 << 20, dtype=torch.int32, device=dev),
+            device_only=True),
+            kway_bound_ms=bound(2 * x.numel() * 4, 0)[0])
+    run(f"B1 sort_rows ({q}, {m})", "ghostm_tpu_torch/csrc/sort_rows.cu",
+        "ghostm_tpu/kernels/sort.py:69",
+        lambda: S.sort_rows(x, presorted_run=rn),
+        lambda: S.sort_rows_plain(x, presorted_run=rn),
+        lambda: torch.sort(x, dim=1),
+        2 * x.numel() * 4,
+        sort_ops(q * tiles, S.TILE, rn.bit_length()) + q * m * (passes + kway),
+        f"2 per compare-exchange of the tile networks (stages "
+        f"{rn.bit_length()}..14) + 1 a key a merge launch",
+        launch=(leg, "sort_rows_tiles", (q, m)) if leg else None,
+        device_ms=True, shape=[q, m, rn], tiles=tiles, merge_passes=passes,
+        kway_merges=kway, **extra)
 
 
 def kernel_phase(dev):
@@ -653,20 +692,23 @@ def kernel_phase(dev):
     for leg, q, m in (("longread_5kbp", 768, 1725 * 16),
                       (None, 384, 3453 * 16)):
         x = presorted_keys(gen_long, q, m, 16, 571_000 * 113, 0.02, dev)
-        tiles = -(-m // S.TILE)
-        passes = (tiles - 1).bit_length()
-        run(f"B1 sort_rows ({q}, {m})", "ghostm_tpu_torch/csrc/sort_rows.cu",
-            "ghostm_tpu/kernels/sort.py:69",
-            lambda: S.sort_rows(x, presorted_run=16),
-            lambda: S.sort_rows_plain(x, presorted_run=16),
-            lambda: torch.sort(x, dim=1),
-            2 * x.numel() * 4,
-            sort_ops(q * tiles, S.TILE, 5) + q * m * passes,
-            "2 per compare-exchange of the tile networks (stages 5..14) + "
-            "1 a key a merge pass",
-            launch=(leg, "sort_rows_tiles", (q, m)) if leg else None,
-            device_ms=True, shape=[q, m, 16], tiles=tiles,
-            merge_passes=passes)
+        b1_long_row(run, S, leg, x, 16, dev)
+    # the longread_k5.hifi10k cell's rows (its own generator; not a leg
+    # here: the cell runs in portbench): 3,452 k-mers x 128 seeds of a
+    # 3,456-residue frame, runs of 128, ~54% invalid; 27 tiles, one k-way
+    # merge, timed alone against one trip of the rows (kway_bound_ms)
+    gen_cell = torch.Generator(device=dev)
+    gen_cell.manual_seed(6)
+    x = presorted_keys(gen_cell, 128, 3452 * 128, 128, 570_000 * 124, 0.54,
+                       dev)
+    b1_long_row(run, S, None, x, 128, dev)
+    # rows of more than KWAY_MAX tiles: pairwise merge passes (one, then
+    # two) until KWAY_MAX runs remain, then the k-way merge reading its
+    # runs' samples in place; the second row's last tile is short and
+    # M % 4 != 0, so it takes no presorted runs
+    for q, m, rn in ((8, 33 * S.TILE, 16), (2, 65 * S.TILE + 3, 1)):
+        x = presorted_keys(gen_long, q, m, rn, 571_000 * 113, 0.02, dev)
+        b1_long_row(run, S, None, x, rn, dev)
     tab = F.score_table(mat, 23)
     for N, Lq, B, leg in ((3072, 1728, 64, "longread_5kbp"),
                           (1536, 3456, 128, None)):
@@ -1723,7 +1765,8 @@ def longread_phase(n_short: int):
          shape_launches=shape_counts(shapes), hits=hits,
          top_hit_is_source=int((top == src).sum()), crosscheck_reads=16,
          crosscheck_equal=same, crosscheck_hits=xhits)
-    for k in ("sort_rows_tiles", "sort_rows_merge", "chain_vote_rank_rows",
+    for k in ("sort_rows_tiles", "sort_rows_merge", "sort_rows_kway",
+              "chain_vote_rank_rows",
               "sw_fused", "lex_rank_rows", "refine"):
         if launches[k] == 0:
             raise SystemExit(f"longread_5kbp: kernel {k} was never launched")
@@ -2100,13 +2143,17 @@ def smoke(args, _build, tail: list, tail_dir: str) -> int:
         e["launches"] = by_shape.get((wrapper, *shapes), 0)
         e["launches_wrapper"] = counts[wrapper]
         e["launches_path"] = path
-        if wrapper == "sort_rows_tiles":   # B1's long rows: + merge passes
+        if wrapper == "sort_rows_tiles":   # B1's long rows: + their merges
             e["launches_merge"] = sum(
                 v for k, v in by_shape.items()
                 if k[0] == "sort_rows_merge" and k[1] == tuple(shapes[0]))
+            e["launches_kway"] = sum(
+                v for k, v in by_shape.items()
+                if k[0] == "sort_rows_kway" and k[1][:2] == tuple(shapes[0]))
         if e["launches"] == 0:
             raise SystemExit(f"{e['name']}: no launch on its path {path}")
-        out.append({k: e[k] for k in keys + ("launches_merge",) if k in e})
+        out.append({k: e[k] for k in keys + ("launches_merge",
+                                              "launches_kway") if k in e})
     emit(phase="done", seconds=time.time() - t_all,
          native_calls=native_calls())
     print(card)

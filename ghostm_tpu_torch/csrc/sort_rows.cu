@@ -53,22 +53,51 @@
 //
 // Rows longer than one block holds (M > 16384: the chained long-read rows,
 // (768, 27600) at 5 kbp and (384, 55248) at 10 kbp with 16-wide seed
-// tables; the TPU kernel sorts them in one block of 96 MB of VMEM) take
-// two entries, launched by the wrapper:
+// tables, (128, 441856) with 128-wide ones at 3,456-residue frames; the TPU
+// kernel sorts them in one block of 96 MB of VMEM) take two trips through
+// device memory, launched by the wrapper:
 //  * ghostm_sort_tiles: one block a tile of T = 16384 keys of a row, sorted
 //    by the L = 16384 network above (the same functions; T is a multiple of
 //    2 x run, so a tile keeps the presorted-run skip). Only a row's last
 //    tile is short; it is padded with PAD in shared memory, so device
-//    memory moves M keys a row, not the next power of two.
-//  * ghostm_merge_pass, ceil(log2(tiles)) times: merges each pair of
-//    sorted runs of `width` keys (the last run of a row may be short or
-//    have no partner). A block owns SPAN output keys; two threads find
-//    where the span starts and ends in both runs by a co-rank (merge-path)
-//    search in device memory (vote.cuh's co_rank, the search B2's merge
-//    entry runs in shared memory), the block stages both ranges in shared
-//    memory, each thread merges SPAN / MT keys from its own co-rank, and
-//    the span leaves with coalesced 16-byte stores. Bound: bytes, 8 a key
-//    a pass.
+//    memory moves M keys a row, not the next power of two. It also writes
+//    every T / NSR-th key of its sorted tile (NSR = KWAY_SAMPLES = 256
+//    samples a tile, 1/64 of the keys) for the k-way merge.
+//  * ghostm_merge_kway: one k-way merge of all K sorted runs of each row
+//    (2 <= K <= KMAX = KWAY_MAX = 32), two kernels in one launch:
+//     - kway_split_kernel, a block a row: the row's samples in shared
+//       memory merged by a merge-path tree (stable: equal keys in run
+//       order), so its g-th, 2g-th, ... sample is a splitter p_b. The rows'
+//       keys are ordered by (key, run, position): the cut of run t at p_b
+//       (its keys before p_b) is p_b's own position in p_b's run; in a
+//       lower run the keys <= p_b's key, in a higher one the keys < it. The
+//       samples put that count inside one sample interval of the run (S =
+//       width / NSR keys), which one thread scans (16-byte loads where vec
+//       holds). Keys equal to a splitter so go to the buckets in run
+//       order; the sort moves keys only, so equal keys are
+//       interchangeable and no index breaks the ties.
+//     - kway_merge_kernel, a block a bucket b (the keys from p_b up to
+//       p_(b+1)): the K slices between the bucket's cuts staged in shared
+//       memory, merged there by a merge-path tree of ceil(log2 K) levels
+//       (each thread merges its share of every level from its co-rank),
+//       and stored from row position sum_t cut_t(p_b). A bucket holds g
+//       samples' keys on average (g S = 7168) and at most (g + K) S - K,
+//       which sizes its shared memory (71 KB at K = 27: three blocks an
+//       SM, ~29 keys a thread a level).
+//    Bound: bytes, 8 a key: the runs read once and the row written once;
+//    at K = 27 the samples add 1.5% and the split's interval scans 11.5%.
+//  * ghostm_merge_pass (rows of more than KMAX tiles, first): merges each
+//    pair of sorted runs of `width` keys (the last run of a row may be
+//    short or have no partner) until KMAX runs remain, then the k-way
+//    merge takes runs of that width while its bucket fits in shared memory
+//    (rows of up to 336 tiles; longer rows merge pairwise to the end: the
+//    wrapper's plan, sort.long_plan). A block owns SPAN output keys; two
+//    threads find where the span starts and ends in both runs by a co-rank
+//    (merge-path) search in device memory (vote.cuh's co_rank, the search
+//    B2's merge entry runs in shared memory), the block stages both ranges
+//    in shared memory, each thread merges SPAN / MT keys from its own
+//    co-rank, and the span leaves with coalesced 16-byte stores. Bound:
+//    bytes, 8 a key a pass.
 #include "vote.cuh"
 
 namespace {
@@ -119,11 +148,18 @@ int launch(const int32_t* x, int32_t* out, int Q, int M, int first, int vec,
 
 constexpr int TILE_LOG = 14;
 constexpr int TILE = 1 << TILE_LOG;
+// the k-way merge's geometry, which its wrapper plans with, is defined
+// once in kernels/_build.py (DEFINES) and comes in as -D flags
+#if !defined(KWAY_MAX) || !defined(KWAY_SAMPLES) || !defined(KWAY_SMEM)
+#error "sort_rows.cu is built by kernels/_build.py (-DKWAY_MAX ...)"
+#endif
+constexpr int NSR = KWAY_SAMPLES;   // the k-way merge's samples of a run
+static_assert(TILE % (4 * NSR) == 0, "a tile's samples: 16-byte steps");
 
 __global__ void __launch_bounds__(Shape<TILE_LOG>::NT)
     sort_tiles_kernel(const int32_t* __restrict__ x,
                       int32_t* __restrict__ out, int M, int tiles, int first,
-                      int vec) {
+                      int vec, int32_t* __restrict__ smp) {
   using S = Shape<TILE_LOG>;   // one row a block: 512 threads
   using W = Words<TILE_LOG>;
   extern __shared__ int32_t s[];
@@ -142,6 +178,11 @@ __global__ void __launch_bounds__(Shape<TILE_LOG>::NT)
                     s[W::of(a + 3)]);
   } else {
     for (int a = threadIdx.x; a < n; a += S::NT) o[a] = s[W::of(a)];
+  }
+  if (smp) {   // every TILE / NSR-th key: the tile's samples
+    constexpr int KS = TILE / NSR;
+    for (int j = threadIdx.x; j * KS < n; j += S::NT)
+      smp[(size_t)blockIdx.x * NSR + j] = s[W::of(j * KS)];
   }
 }
 
@@ -194,6 +235,228 @@ __global__ void __launch_bounds__(MT)
   }
 }
 
+constexpr int KMAX = KWAY_MAX;   // runs of a k-way merge
+constexpr int ST = 1024;    // threads of a split block
+constexpr int KT = 256;     // threads of a merge block
+
+// lists t = 0 .. K-1 of a buffer hold keys [off[t], off[t + 1]); the last
+// list t with off[t] <= d, for d < off[K]
+__device__ __forceinline__ int list_at(const int* off, int K, int d) {
+  int lo = 0, hi = K - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (off[mid] <= d) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+// a thread's share of a level: odd, so that threads d / vt apart write
+// 32 different banks
+__device__ __forceinline__ int share(int n, int nt) {
+  return ((n + nt - 1) / nt) | 1;
+}
+
+// Outputs [d, e) of one level of a merge-path tree from x into y: at span
+// s the lists are groups of s of the K input lists, merged pairwise (the
+// lower group first on equal keys, so the tree is stable). x holds one
+// readable word past its keys: an exhausted list's head is read, never
+// used.
+__device__ void merge_level(const int32_t* __restrict__ x,
+                            int32_t* __restrict__ y, const int* off, int K,
+                            int s, int d, int e) {
+  while (d < e) {
+    const int p = list_at(off, K, d) / (2 * s) * (2 * s);
+    const int a = off[p], m = off[min(p + s, K)], f = off[min(p + 2 * s, K)];
+    const int stop = min(e, f);
+    // co-rank: keys of [a, m) among the first d - a of the pair
+    int lo = max(a, d - f + m), hi = min(d, m);
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (x[mid] <= x[m + d - mid - 1]) lo = mid + 1; else hi = mid;
+    }
+    int ia = lo, ib = m + d - lo;   // heads, as word indices
+    int va = x[ia], vb = x[ib];
+    for (; d < stop; ++d) {
+      const bool ta = ib >= f || (ia < m && va <= vb);
+      y[d] = ta ? va : vb;
+      ia += ta;
+      ib += !ta;
+      const int v = x[ta ? ia : ib];
+      va = ta ? v : va;
+      vb = ta ? vb : v;
+    }
+  }
+}
+
+// keys of sorted list [a, f) of a buffer below v (upper: <= v)
+__device__ __forceinline__ int rank_in(const int32_t* x, int a, int f,
+                                       int32_t v, bool upper) {
+  int lo = a, hi = f;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const int32_t k = x[mid];
+    if (k < v || (upper && k == v)) lo = mid + 1; else hi = mid;
+  }
+  return lo - a;
+}
+
+// keys at positions [lo, hi) of a sorted run below v (upper: <= v); vec:
+// the run and its length are 16-byte multiples
+__device__ int count_below(const int32_t* __restrict__ r, int lo, int hi,
+                           int32_t v, bool upper, int vec) {
+  int c = 0;
+  if (vec) {
+#pragma unroll 4
+    for (int p = lo & ~3; p < hi; p += 4) {
+      const int4 q = *reinterpret_cast<const int4*>(r + p);
+      const int32_t k[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        c += p + i >= lo && p + i < hi && (k[i] < v || (upper && k[i] == v));
+    }
+  } else {
+    for (int p = lo; p < hi; ++p) c += r[p] < v || (upper && r[p] == v);
+  }
+  return c;
+}
+
+// One block a row: cuts[row][b][t], the first key of bucket b in run t, for
+// b = 0 .. nb (bucket nb: the run's end). Sample (t, j) of the row is
+// smp[row * s_row + t * s_run + j * s_j].
+__global__ void __launch_bounds__(ST)
+    kway_split_kernel(const int32_t* __restrict__ in,
+                      const int32_t* __restrict__ smp, long long s_row,
+                      int s_run, int s_j, int32_t* __restrict__ cuts, int M,
+                      int width, int K, int g, int nb, int vec) {
+  extern __shared__ int32_t sm[];
+  __shared__ int off[KMAX + 1];
+  const int S = width / NSR;
+  const int ns = (K - 1) * NSR + (M - (K - 1) * width + S - 1) / S;
+  const size_t row = blockIdx.x;
+  for (int t = threadIdx.x; t <= K; t += ST) off[t] = t < K ? t * NSR : ns;
+  int32_t* A = sm;   // the samples, kept for the splitters' ranks
+  int32_t* B = A + ns + 1;
+  int32_t* C = B + ns + 1;
+  const int32_t* sr = smp + row * s_row;
+  for (int i = threadIdx.x; i < ns; i += ST) {
+    const int t = i / NSR;
+    A[i] = sr[(size_t)t * s_run + (size_t)(i - t * NSR) * s_j];
+  }
+  __syncthreads();
+  const int vt = share(ns, ST);
+  const int d = min(ns, (int)threadIdx.x * vt), e = min(ns, d + vt);
+  const int32_t* m = A;
+  for (int s = 1; s < K; s *= 2) {
+    int32_t* y = m == B ? C : B;
+    merge_level(m, y, off, K, s, d, e);
+    __syncthreads();
+    m = y;
+  }
+  // a warp a splitter, a lane a run
+  const int lane = threadIdx.x & 31;
+  const int32_t* run = in + row * M + (size_t)min(lane, K - 1) * width;
+  const int n = lane < K ? min(width, M - lane * width) : 0;
+  for (int b = threadIdx.x >> 5; b <= nb; b += ST / 32) {
+    int c = b == nb ? n : 0;
+    if (b > 0 && b < nb) {
+      const int D = b * g;             // the splitter's rank among samples
+      const int32_t x = m[D];
+      int lt = 0, le = 0;
+      if (lane < K) {
+        lt = rank_in(A, off[lane], off[lane + 1], x, false);
+        le = rank_in(A, off[lane], off[lane + 1], x, true);
+      }
+      const int eq = le - lt;
+      int cum = eq, slt = lt;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(~0u, cum, o);
+        if (lane >= o) cum += v;
+      }
+      cum -= eq;                       // equal samples in lower runs
+      for (int o = 16; o; o >>= 1) slt += __shfl_xor_sync(~0u, slt, o);
+      const int r = D - slt;           // equal samples before the splitter
+      const int u = __ffs(__ballot_sync(~0u, eq > 0 && cum <= r &&
+                                                 r < cum + eq)) - 1;
+      // samples of this run before the splitter
+      const int sig = lane < u ? le : lane > u ? lt : lt + r - cum;
+      if (lane == u) {
+        c = sig * S;
+      } else if (lane < K && sig > 0) {
+        const int lo = (sig - 1) * S + 1;
+        c = lo + count_below(run, lo, min(sig * S, n), x, lane < u, vec);
+      }
+    }
+    if (lane < K) cuts[(row * (nb + 1) + b) * K + lane] = c;
+  }
+}
+
+// One block a bucket of a row: its K slices staged in shared memory,
+// merged there, and stored into out.
+__global__ void __launch_bounds__(KT, 3)
+    kway_merge_kernel(const int32_t* __restrict__ in,
+                      int32_t* __restrict__ out,
+                      const int32_t* __restrict__ cuts, int M, int width,
+                      int K, int nb, int cap) {
+  extern __shared__ int32_t sm[];
+  __shared__ int off[KMAX + 1], beg[KMAX];
+  __shared__ int base;
+  const size_t row = blockIdx.x / nb;
+  const int b = blockIdx.x % nb;
+  if (threadIdx.x < 32) {   // the slices, their offsets, the output's start
+    const int lane = threadIdx.x;
+    const int32_t* c = cuts + (row * (nb + 1) + b) * K;
+    const int c0 = lane < K ? c[lane] : 0;
+    const int len = lane < K ? c[K + lane] - c0 : 0;
+    int inc = len, sum = c0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(~0u, inc, o);
+      if (lane >= o) inc += v;
+    }
+    for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(~0u, sum, o);
+    if (lane < K) {
+      beg[lane] = c0;
+      off[lane + 1] = inc;
+    }
+    if (lane == 0) {
+      off[0] = 0;
+      base = sum;
+    }
+  }
+  __syncthreads();
+  const int n = off[K];
+  int32_t* X = sm;
+  int32_t* Y = sm + cap + 1;
+  const int32_t* r = in + row * M;
+  constexpr int UN = 16;   // loads in flight a thread
+  int t = 0;
+  for (int i0 = threadIdx.x; i0 < n; i0 += UN * KT) {
+    int32_t v[UN];
+#pragma unroll
+    for (int k = 0; k < UN; ++k) {
+      const int i = i0 + k * KT;
+      if (i < n) {
+        while (off[t + 1] <= i) ++t;
+        v[k] = r[(size_t)t * width + beg[t] + i - off[t]];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < UN; ++k)
+      if (i0 + k * KT < n) X[i0 + k * KT] = v[k];
+  }
+  __syncthreads();
+  const int vt = share(n, KT);
+  const int d = min(n, (int)threadIdx.x * vt), e = min(n, d + vt);
+  const int32_t* m = X;
+  for (int s = 1; s < K; s *= 2) {
+    int32_t* y = m == X ? Y : X;
+    merge_level(m, y, off, K, s, d, e);
+    __syncthreads();
+    m = y;
+  }
+  int32_t* o = out + row * M + base;
+  for (int i = threadIdx.x; i < n; i += KT) o[i] = m[i];
+}
+
 }  // namespace
 
 // x, out: (Q, M) int32, contiguous; L = pow2 >= max(M, 128), L <= 16384;
@@ -218,9 +481,10 @@ extern "C" int ghostm_sort_rows(const int32_t* x, int32_t* out, int Q, int M,
 // Long rows, step 1: x, out (Q, M) int32, contiguous, M > 16384; every
 // 16384-key tile of a row sorted ascending into out from stage `first`
 // (each tile holds whole presorted runs); vec: M % 4 == 0 and x, out
-// 16-byte aligned.
+// 16-byte aligned. samples (Q, tiles, NSR) int32 or null: every
+// (16384 / NSR)-th key of each sorted tile, for ghostm_merge_kway.
 extern "C" int ghostm_sort_tiles(const int32_t* x, int32_t* out, int Q,
-                                 int M, int first, int vec,
+                                 int M, int first, int vec, int32_t* samples,
                                  cudaStream_t stream) {
   using S = Shape<TILE_LOG>;
   const int tiles = (M + TILE - 1) / TILE;
@@ -228,14 +492,15 @@ extern "C" int ghostm_sort_tiles(const int32_t* x, int32_t* out, int Q,
   if (!row_smem_ok(sort_tiles_kernel, shm)) return (int)cudaErrorInvalidValue;
   if ((long long)Q * tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   sort_tiles_kernel<<<Q * tiles, S::NT, shm, stream>>>(x, out, M, tiles,
-                                                        first, vec);
+                                                        first, vec, samples);
   return (int)cudaGetLastError();
 }
 
-// Long rows, step 2: in, out (Q, M) int32, contiguous; each row of `in`
-// holds sorted runs of `width` keys (width a multiple of 16384, the last
-// run of a row shorter); out gets each pair of runs merged (a run with no
-// partner copied). vec: M % 4 == 0 and in, out 16-byte aligned.
+// Long rows of more than KMAX tiles, step 2 until KMAX runs remain: in,
+// out (Q, M) int32, contiguous; each row of `in` holds sorted runs of
+// `width` keys (width a multiple of 16384, the last run of a row shorter);
+// out gets each pair of runs merged (a run with no partner copied). vec:
+// M % 4 == 0 and in, out 16-byte aligned.
 extern "C" int ghostm_merge_pass(const int32_t* in, int32_t* out, int Q,
                                  int M, int width, int vec,
                                  cudaStream_t stream) {
@@ -244,5 +509,45 @@ extern "C" int ghostm_merge_pass(const int32_t* in, int32_t* out, int Q,
     return (int)cudaErrorInvalidValue;
   merge_pass_kernel<<<Q * spans, MT, 0, stream>>>(in, out, M, width, spans,
                                                   vec);
+  return (int)cudaGetLastError();
+}
+
+// Long rows, the last step: in, out (Q, M) int32, contiguous; each row of
+// `in` holds K = ceil(M / width) sorted runs of `width` keys (2 <= K <=
+// KMAX, width a multiple of 16384, the last run shorter); out gets each
+// row sorted. samples: ghostm_sort_tiles' (width 16384), or null to read
+// every (width / NSR)-th key of the runs in place. cuts: (Q, nb + 1, K)
+// int32 scratch; g samples a bucket, nb = ceil(samples a row / g) (the
+// wrapper's sort._kway_shape). vec: M % 4 == 0 and in 16-byte aligned.
+extern "C" int ghostm_merge_kway(const int32_t* in, int32_t* out, int Q,
+                                 int M, int width, const int32_t* samples,
+                                 int32_t* cuts, int g, int nb, int vec,
+                                 cudaStream_t stream) {
+  const int K = (M + width - 1) / width;
+  if (K < 2 || K > KMAX || width % (4 * NSR) || g < 1)
+    return (int)cudaErrorInvalidValue;
+  const int S = width / NSR;
+  const int ns = (K - 1) * NSR + (M - (K - 1) * width + S - 1) / S;
+  const long long cap = (long long)(g + K) * S;
+  if (nb != (ns + g - 1) / g || cap > (1 << 20) ||
+      (long long)Q * nb > 0x7FFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
+  const int split_shm = 3 * (ns + 1) * (int)sizeof(int32_t);
+  const int merge_shm = 2 * ((int)cap + 1) * (int)sizeof(int32_t);
+  if (!row_smem_ok(kway_split_kernel, split_shm, KWAY_SMEM) ||
+      !row_smem_ok(kway_merge_kernel, merge_shm, KWAY_SMEM))
+    return (int)cudaErrorInvalidValue;
+  long long s_row = (long long)K * NSR;
+  int s_run = NSR, s_j = 1;
+  if (!samples) {
+    samples = in;
+    s_row = M;
+    s_run = width;
+    s_j = S;
+  }
+  kway_split_kernel<<<Q, ST, split_shm, stream>>>(
+      in, samples, s_row, s_run, s_j, cuts, M, width, K, g, nb, vec);
+  kway_merge_kernel<<<Q * nb, KT, merge_shm, stream>>>(in, out, cuts, M,
+                                                       width, K, nb, (int)cap);
   return (int)cudaGetLastError();
 }

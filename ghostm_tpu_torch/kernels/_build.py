@@ -33,6 +33,14 @@ NVCC_FLAGS = (
 )
 SOURCES = ("sort_rows", "sort_vote", "merge_vote", "sw_fused", "lex_rank",
            "sw_scored", "refine", "chain_vote")
+# Compile-time constants of a source that its wrapper plans launches with,
+# defined here once and passed to nvcc as -D<name>=<value>. sort_rows: B1's
+# k-way merge takes at most KWAY_MAX runs, KWAY_SAMPLES samples a run and
+# KWAY_SMEM bytes of shared memory a block (an H100 block's opt-in limit).
+DEFINES: Dict[str, Dict[str, int]] = {
+    "sort_rows": {"KWAY_MAX": 32, "KWAY_SAMPLES": 256,
+                  "KWAY_SMEM": 227 << 10},
+}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -41,9 +49,13 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # launches its kernel and nowhere else (a CPU tensor's plain version does
 # not count), so a run can show that its path went through the kernels; a
 # replayed CUDA graph adds the launches its capture recorded (Replayed).
-# SHAPES counts the same launches by (wrapper, input shapes).
+# SHAPES counts the same launches by (wrapper, input shapes). B1's long rows
+# count their stages: "sort_rows_tiles" the tile sort, "sort_rows_merge"
+# each merge launch (a pairwise pass, or the k-way merge), and
+# "sort_rows_kway" the k-way merges among those, by (Q, M, K).
 LAUNCHES: Dict[str, int] = dict.fromkeys((
-    "sort_rows", "sort_rows_tiles", "sort_rows_merge", "sort_vote_rank_rows",
+    "sort_rows", "sort_rows_tiles", "sort_rows_merge", "sort_rows_kway",
+    "sort_vote_rank_rows",
     "merge_vote_rank_rows", "sw_fused", "lex_rank_rows", "sw_scored",
     "sw_wave", "refine", "chain_vote_rank_rows",
 ), 0)
@@ -110,9 +122,14 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{k}={v}"
+                              for k, v in DEFINES.get(name, {}).items())
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(p.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
@@ -125,7 +142,7 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out

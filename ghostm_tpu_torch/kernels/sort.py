@@ -8,7 +8,7 @@ integers: an integer sort's output is unique, and the kernels'
 tie-breaks are the plain versions' tie-breaks.
 
   B1 sort_rows             ascending sort of each row (torch.sort); rows
-                           past TILE keys as tiles, then merge passes
+                           past TILE keys as tiles, then one k-way merge
   B2 sort_vote_rank_rows   sort + run-length vote + top-ncand per row
      merge_vote_rank_rows  the same over the union of two sorted halves
   B4 lex_rank_rows         stable lexicographic multi-operand row sort,
@@ -40,8 +40,14 @@ _LANES = 128           # the top-ncand output width of the JAX kernel
 # table rows)
 MAX_SMEM_ROW = 64 << 10
 # B1's longest one-block row; longer rows sort as tiles of TILE keys, then
-# merge passes (csrc/sort_rows.cu)
+# merge in one k-way launch (csrc/sort_rows.cu)
 TILE = 1 << 14
+# B1's k-way merge (csrc/sort_rows.cu): its compile-time geometry
+# (_build.DEFINES), and KWAY_KEYS keys a merge block on average
+KWAY_MAX, KWAY_SAMPLES, KWAY_SMEM = (
+    _build.DEFINES["sort_rows"][k]
+    for k in ("KWAY_MAX", "KWAY_SAMPLES", "KWAY_SMEM"))
+KWAY_KEYS = 7168
 # B4's keys and index: (num_keys + 1) x L int32 of shared memory, up to an
 # H100 block's 227 KB opt-in (csrc/lex_rank.cu)
 LEX_SMEM_ROW = 227 << 10
@@ -275,7 +281,7 @@ def sort_rows(x: torch.Tensor, presorted_run: int = 0) -> torch.Tensor:
     aligned 2^p block of a row is sorted ascending for even block index
     and descending for odd (the state after bitonic stage p), so the
     kernel starts at stage p + 1. Rows of up to TILE keys sort in one
-    block; longer ones (long reads) in tiles, then merge passes
+    block; longer ones (long reads) in tiles, then one k-way merge
     (_sort_rows_long). Replaces the JAX package's
     kernels/sort.py::sort_rows (Pallas _sort_kernel)."""
     if x.device.type == "cpu":
@@ -300,44 +306,108 @@ def sort_rows(x: torch.Tensor, presorted_run: int = 0) -> torch.Tensor:
     return out
 
 
+def _kway_shape(M: int, width: int) -> Tuple[int, int, int, int]:
+    """(K, g, nb, shared bytes) of the k-way merge of rows of M keys in
+    sorted runs of `width`: K runs, g samples a bucket (one sample every
+    width / KWAY_SAMPLES keys), nb buckets a row, and the shared memory of
+    its merge block, which holds a bucket's (g + K) x S keys at most
+    (csrc/sort_rows.cu ghostm_merge_kway)."""
+    K = -(-M // width)
+    S = width // KWAY_SAMPLES
+    g = max(1, KWAY_KEYS // S)
+    ns = (K - 1) * KWAY_SAMPLES + -(-(M - (K - 1) * width) // S)
+    cap = (g + K) * S
+    return K, g, -(-ns // g), 2 * 4 * (cap + 1)
+
+
+def long_plan(M: int) -> Tuple[int, int]:
+    """B1's launches after the tile sort of rows of M > TILE keys: (pairwise
+    merge passes, k-way merges). Up to KWAY_MAX tiles one k-way launch
+    merges them all; more take pairwise passes until KWAY_MAX runs remain,
+    then the k-way launch, while its block fits in shared memory (rows of
+    up to 336 tiles, 5.5 M keys); longer rows merge pairwise to the end."""
+    tiles = -(-M // TILE)
+    passes = (-(-tiles // KWAY_MAX) - 1).bit_length()
+    if _kway_shape(M, TILE << passes)[3] <= KWAY_SMEM:
+        return passes, 1
+    return (tiles - 1).bit_length(), 0
+
+
 def _sort_rows_long(x: torch.Tensor, out: torch.Tensor,
                     run: int) -> torch.Tensor:
     """B1 at rows longer than one block holds (M > TILE): one launch
     sorts every TILE-key tile of every row with the L = TILE network
-    (the last tile of a row padded in shared memory only), then
-    ceil(log2(tiles)) merge-path passes, each merging pairs of sorted
-    runs of TILE << p keys between `out` and a scratch row array, the
-    last pass into `out`. Each launch counts: "sort_rows_tiles" once,
-    "sort_rows_merge" once a pass."""
+    (the last tile of a row padded in shared memory only) and writes
+    KWAY_SAMPLES samples of each, then one k-way launch merges all of a
+    row's tiles (csrc/sort_rows.cu: a split kernel cuts each row at
+    samples, a merge kernel merges each bucket's slices in shared
+    memory): two trips through device memory. Rows of more than KWAY_MAX
+    tiles take pairwise merge passes first (long_plan). The launches
+    alternate between `out` and a scratch row array, the last into `out`.
+    Counts: "sort_rows_tiles" once; "sort_rows_merge" once a merge
+    launch, pairwise or k-way (the merge stage of the long rows);
+    "sort_rows_kway" once a k-way launch, shape (Q, M, K)."""
     Q, M = x.shape
-    tiles = -(-M // TILE)
-    passes = (tiles - 1).bit_length()
+    passes, kway = long_plan(M)
     # a tile inside one presorted run is all ascending or all descending,
     # not a bitonic stage's input: sort it from stage 1
     first = run.bit_length() if run < TILE else 1
     tmp = torch.empty_like(x)
-    src = out if passes % 2 == 0 else tmp
+    src = out if (passes + kway) % 2 == 0 else tmp
     dst = tmp if src is out else out
     vec = int(_aligned(x, out, tmp))
-    lib = _build.load("sort_rows")
-    tiles_fn = lib.ghostm_sort_tiles
-    tiles_fn.argtypes = [_P, _P, _I, _I, _I, _I, _P]
-    tiles_fn.restype = _I
-    merge_fn = lib.ghostm_merge_pass
+    smp = _sort_tiles(x, src, first, vec, bool(kway) and not passes)
+    merge_fn = _build.load("sort_rows").ghostm_merge_pass
     merge_fn.argtypes = [_P, _P, _I, _I, _I, _I, _P]
     merge_fn.restype = _I
-    stream = _build.stream_ptr(x.device)
-    _build.check(tiles_fn(x.data_ptr(), src.data_ptr(), Q, M, first, vec,
-                          stream), "sort_rows (tiles)")
-    _build.count("sort_rows_tiles", x.shape)
     width = TILE
-    while width < M:
+    for _ in range(passes):
         _build.check(merge_fn(src.data_ptr(), dst.data_ptr(), Q, M, width,
-                              vec, stream), "sort_rows (merge pass)")
+                              vec, _build.stream_ptr(x.device)),
+                     "sort_rows (merge pass)")
         _build.count("sort_rows_merge", x.shape, (width,))
         src, dst = dst, src
         width *= 2
+    if kway:
+        _merge_kway(src, dst, width, smp, vec)
     return out
+
+
+def _sort_tiles(x: torch.Tensor, dst: torch.Tensor, first: int, vec: int,
+                samples: bool):
+    """B1's tile launch: every TILE-key tile of x's rows sorted into dst;
+    returns the tiles' samples ((Q, tiles, KWAY_SAMPLES) int32) when
+    asked, else None."""
+    Q, M = x.shape
+    smp = (torch.empty((Q, -(-M // TILE), KWAY_SAMPLES), dtype=torch.int32,
+                       device=x.device) if samples else None)
+    fn = _build.load("sort_rows").ghostm_sort_tiles
+    fn.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P]
+    fn.restype = _I
+    _build.check(fn(x.data_ptr(), dst.data_ptr(), Q, M, first, vec,
+                    None if smp is None else smp.data_ptr(),
+                    _build.stream_ptr(x.device)), "sort_rows (tiles)")
+    _build.count("sort_rows_tiles", x.shape)
+    return smp
+
+
+def _merge_kway(src: torch.Tensor, dst: torch.Tensor, width: int, smp,
+                vec: int) -> None:
+    """B1's k-way launch: rows of src, sorted runs of `width` keys, merged
+    into dst; smp: _sort_tiles' samples (width TILE), or None to read the
+    runs' samples in place."""
+    Q, M = src.shape
+    K, g, nb, _ = _kway_shape(M, width)
+    cuts = torch.empty((Q, nb + 1, K), dtype=torch.int32, device=src.device)
+    fn = _build.load("sort_rows").ghostm_merge_kway
+    fn.argtypes = [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P]
+    fn.restype = _I
+    _build.check(fn(src.data_ptr(), dst.data_ptr(), Q, M, width,
+                    None if smp is None else smp.data_ptr(), cuts.data_ptr(),
+                    g, nb, vec, _build.stream_ptr(src.device)),
+                 "sort_rows (k-way merge)")
+    _build.count("sort_rows_merge", src.shape, (width, K))
+    _build.count("sort_rows_kway", (Q, M, K))
 
 
 # ---------------------------------------------------------------------------

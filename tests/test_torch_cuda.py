@@ -120,12 +120,12 @@ def test_sort_rows_kernel(dev, q, m, run, kind):
 
 
 @pytest.mark.parametrize("q,m,run,kind", [
-    (768, 1725 * 16, 16, "rand"),   # the 5 kbp propose row: 2 tiles, 1 pass
-    (384, 3453 * 16, 16, "rand"),   # 10 kbp: 4 tiles, 2 passes
+    (768, 1725 * 16, 16, "rand"),   # the 5 kbp propose row: 2 tiles
+    (384, 3453 * 16, 16, "rand"),   # 10 kbp: 4 tiles
     (3, 16385, 0, "rand"),          # one key past a tile (scalar edge)
     (5, 16384 + 16, 16, "rand"),    # one run past a tile
-    (2, 3 * 16384, 16, "rand"),     # odd tile count: a run with no partner
-    (1, 5 * 16384 + 100, 0, "rand"),   # Q = 1, 5 tiles, 3 passes
+    (2, 3 * 16384, 16, "rand"),     # 3 tiles
+    (1, 5 * 16384 + 100, 0, "rand"),   # Q = 1, 6 tiles
     (1, 1725 * 128, 128, "rand"),   # k = 5, hits_per_seed 128: 14 tiles
     (2, 32768, 8192, "rand"),       # runs of half a tile: its last stage
     (2, 32768, 16384, "rand"),      # runs as long as a tile: full tile sort
@@ -133,30 +133,53 @@ def test_sort_rows_kernel(dev, q, m, run, kind):
     (3, 1725 * 16, 16, "big"), (2, 3453 * 16, 16, "few"),
     (2, 3453 * 16, 16, "ties"), (3, 1725 * 16, 16, "equal"),
     (4, 1725 * 16, 16, "unaligned"), (3, 16385 * 2, 0, "unaligned"),
+    # the k-way merge: the longread_k5.hifi10k cell's rows (3,452 k-mers x
+    # 128 seeds, runs of 128, ~54% BIG: 27 tiles, the last short), K = 2
+    # to KMAX = 32, KMAX + 1 and 64 + 1 tiles (pairwise passes first), the
+    # cell's rows all BIG, all equal, of 5 values, unaligned, and rows of
+    # equal runs straddling every tile and bucket edge (ascending and
+    # descending blocks of 5,000 equal keys)
+    (128, 3452 * 128, 128, "cell"), (2, 3452 * 128, 128, "big"),
+    (2, 3452 * 128, 128, "equal"), (2, 3452 * 128, 128, "few"),
+    (3, 3452 * 128 + 3, 0, "unaligned"), (2, 2 * 16384, 0, "rand"),
+    (2, 27 * 16384, 16, "rand"), (2, 32 * 16384, 16, "rand"),
+    (2, 33 * 16384, 16, "rand"), (1, 64 * 16384 + 4, 4, "rand"),
+    (2, 20 * 16384 + 7, 0, "blocks"), (2, 20 * 16384 + 8, 8, "blocks_desc"),
+    (2, 32 * 16384, 0, "blocks"), (2, 33 * 16384 - 5, 0, "few"),
 ])
 def test_sort_rows_long_kernel(dev, q, m, run, kind):
-    """B1 past one block (M > 16384): the tile sort and its merge passes
-    against torch.sort; one tile launch and ceil(log2(tiles)) passes."""
+    """B1 past one block (M > 16384): the tile sort and its merges against
+    torch.sort; one tile launch, then sort.long_plan's launches: one k-way
+    merge up to KMAX tiles, pairwise passes first above."""
     gen = torch.Generator().manual_seed(q + m)
     x = torch.randint(0, 1 << 26, (q, m), generator=gen, dtype=torch.int32)
-    x[torch.rand((q, m), generator=gen) < 0.2] = BIG
+    x[torch.rand((q, m), generator=gen) < (0.54 if kind == "cell" else 0.2)
+      ] = BIG
     if run == 0:
         x = torch.randint(-(1 << 31), (1 << 31) - 1, (q, m), generator=gen,
                           dtype=torch.int32)
     if kind in ("equal", "big", "few", "ties"):
         x = _fill(x, kind, gen)
+    elif kind.startswith("blocks"):
+        b = torch.arange(m, dtype=torch.int32) // 5000
+        x[:] = b.flip(0) if kind == "blocks_desc" else b
     if run > 1:
         x = _presorted(x, run)
     x = x.to(dev)
     if kind == "unaligned":
         x = _unaligned(x)
-    before = dict(_build.LAUNCHES)
+    before, shapes = dict(_build.LAUNCHES), _build.SHAPES.copy()
     got = S.sort_rows(x, presorted_run=run)
     torch.cuda.synchronize()
-    tiles = -(-m // S.TILE)
+    passes, kway = S.long_plan(m)
     assert _build.LAUNCHES["sort_rows_tiles"] == before["sort_rows_tiles"] + 1
     assert (_build.LAUNCHES["sort_rows_merge"]
-            == before["sort_rows_merge"] + (tiles - 1).bit_length())
+            == before["sort_rows_merge"] + passes + kway)
+    assert _build.LAUNCHES["sort_rows_kway"] == before["sort_rows_kway"] + kway
+    if m <= S.KWAY_MAX * S.TILE:
+        assert (passes, kway) == (0, 1)
+        k = -(-m // S.TILE)
+        assert (_build.SHAPES - shapes)[("sort_rows_kway", (q, m, k))] == 1
     assert _build.LAUNCHES["sort_rows"] == before["sort_rows"]
     assert torch.equal(got, S.sort_rows_plain(x, presorted_run=run))
 
@@ -611,8 +634,9 @@ def test_engine_cuda_equals_cpu_long_read(dev, tmp_path):
     """Long-read mode (the golden's config: 1728-residue frames, band 64,
     k = 4, chain_gamma 2) on the golden database plus a poly-A subject,
     whose AAAA bucket fills hits_per_seed 16: 16-wide table rows, so
-    propose's key rows hold 1725 x 16 keys and take B1's long-row entry.
-    The packed step output on CUDA equals the CPU engine's."""
+    propose's key rows hold 1725 x 16 keys and take B1's long-row entry
+    (2 tiles, one k-way merge). The packed step output on CUDA equals the
+    CPU engine's."""
     import json
 
     from ghostm_tpu_torch.cli import main as cli
@@ -639,6 +663,7 @@ def test_engine_cuda_equals_cpu_long_read(dev, tmp_path):
     before = dict(_build.LAUNCHES)
     got = g.fetch(g.search_refine_async_dna(dna, lens))
     assert _build.LAUNCHES["sort_rows_tiles"] == before["sort_rows_tiles"] + 1
+    assert _build.LAUNCHES["sort_rows_kway"] == before["sort_rows_kway"] + 1
     assert _build.LAUNCHES["sort_vote_rank_rows"] == before[
         "sort_vote_rank_rows"]
     assert _build.LAUNCHES["chain_vote_rank_rows"] > before[

@@ -81,6 +81,43 @@ def test_sort_rows_matches_jax(rng, q, m, run, kind):
                              interpret=True))
 
 
+@pytest.mark.parametrize("m", [
+    16_385, 2 * 16_384, 27_600, 55_248, 3_452 * 128, 32 * 16_384,
+    32 * 16_384 + 1, 64 * 16_384, 64 * 16_384 + 1, 100 * 16_384 + 7,
+    256 * 16_384, 256 * 16_384 + 1, 336 * 16_384, 336 * 16_384 + 1,
+    512 * 16_384 + 1, 1_000 * 16_384,
+])
+def test_long_plan(m):
+    """B1's launch plan past one block (kernel launches need a GPU; the plan
+    is host arithmetic): up to KWAY_MAX tiles one k-way merge after the
+    tiles (two trips through device memory); more tiles, pairwise passes
+    until KWAY_MAX runs remain, then the k-way merge while its block fits
+    in shared memory; longer rows pairwise to the end. The k-way's buckets
+    cover the row's samples, and a bucket's (g + K) x S keys fit its
+    shared memory."""
+    T = tsort.TILE
+    tiles = -(-m // T)
+    passes, kway = tsort.long_plan(m)
+    if tiles <= tsort.KWAY_MAX:
+        assert (passes, kway) == (0, 1)
+    if kway:
+        width = T << passes
+        K, g, nb, smem = tsort._kway_shape(m, width)
+        assert 2 <= K <= tsort.KWAY_MAX
+        if passes:   # one pass fewer would leave too many runs
+            assert -(-m // (width >> 1)) > tsort.KWAY_MAX
+        assert K == -(-tiles // (1 << passes))
+        S = width // tsort.KWAY_SAMPLES
+        ns = (K - 1) * tsort.KWAY_SAMPLES + -(-(m - (K - 1) * width) // S)
+        assert (nb - 1) * g < ns <= nb * g
+        cap = (g + K) * S
+        assert smem == 8 * (cap + 1) <= tsort.KWAY_SMEM
+    else:
+        assert tiles > 336 and passes == (tiles - 1).bit_length()
+        width = T << (-(-tiles // tsort.KWAY_MAX) - 1).bit_length()
+        assert tsort._kway_shape(m, width)[3] > tsort.KWAY_SMEM
+
+
 @pytest.mark.parametrize("q,m,run,minv,kind", _cases([
     (8, 640, 128, 2), (8, 96, 1, 1), (4, 608, 16, 1),
 ], [
